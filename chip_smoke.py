@@ -2,28 +2,49 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run with a nonzero exit:
+It drives the port's three paths, each through its own fan kernel of
+csrc/fused_psi.cu: the headline (Pacejka, N=12; K1), config 1 (the
+kinematic bicycle, N=20; K2) and ss_n40 (bounded state constraints through
+the ALM general path, N=40; K3). Phases, each of which fails the run with a
+nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the fan kernel (csrc/fused_psi.cu) from this checkout;
-3. kernel check: the kernel against its plain PyTorch version on the card
-   (``mpc_tpu_torch.kernels.check``; psi rtol 2e-5 / atol 1e-6, grad rtol
-   2e-4 / atol 2e-5). First on drawn inputs inside the solver's box, E in
-   {1, 37, 5120}, N=12, substeps=4, S=100, straight and circle roads,
-   default and non-default vehicle parameters. Then on every fan input of
-   the first closed-loop steps of the benchmark at batch 1024, at the shapes
-   the main path gives the kernel: the PANOC candidate fans (5 x 1024, 24),
-   whose L-BFGS candidates are not projected onto the box, and the init
-   pairs (2 x 1024, 24). A lane beyond the bar is excused only where the
+2. build: compiles the fan kernels (csrc/fused_psi.cu) from this checkout;
+3. kernel checks, for each kernel of the table ``KERNELS`` against its
+   plain PyTorch version on the card (``mpc_tpu_torch.kernels.check``; psi
+   rtol 2e-5 / atol 1e-6, grad rtol 2e-4 / atol 2e-5 per entry, for K3 plus
+   1e-6 of each lane's largest gradient entry, the f32 rounding at the
+   lane's scale that check.py documents). First on drawn inputs inside the
+   solver's box: K1 at E in {1, 37, 5120}, N=12, straight and circle roads,
+   default and non-default vehicle parameters; K2 at E in {1, 37, 5120},
+   N=20, both roads; K3 at E in {1, 37, 1280}, N=40, on the lane-change
+   road, with multipliers in [0, 2] and penalties log-uniform over
+   [1e-1, 1e3] and [1e3, 1e9]. Then on fan inputs
+   captured from each path's first closed-loop steps, at the shapes the path
+   gives its kernel: candidate fans (5 x batch lanes), whose L-BFGS
+   candidates are not projected onto the box, and init pairs (2 x batch).
+   K1: every call of 3 steps at batch 1024 (E=5120, 2048). K2: every call of
+   2 steps at batch 1024 (E=5120, 2048). K3: 2 steps at batch 256 (E=1280,
+   512); its plain version is slow at N=40, so at most 40 calls per shape
+   are checked, evenly spaced, which takes in the first call of the first
+   outer iteration of the first step and the last call of the last outer
+   iteration of each step. A lane beyond the bar is excused only where the
    plain version in float32 misses its own float64 value by the bar too;
-   such lanes are counted, and must be under 1% of a phase's lanes;
-4. timing: kernel and plain version on the first captured fan of each shape,
-   E=5120 and E=2048 (CUDA events, median of 50 runs);
-5. main path: mpc_tpu_torch.bench (batch 1024, N=12, 5 warm-up and 20
-   timed closed-loop steps, then the batch-1 latency loop over 50 steps);
-   the kernel's launch count must cover every PANOC iteration run, every
-   state must be finite and the mean converged fraction must be >= 0.99.
+   such lanes are counted, and must be under 1% of a check's lanes;
+4. timing: each kernel and its plain version on the first captured fan of
+   each shape (CUDA events; the kernel's median of 50 runs, the plain
+   version's of 50 for K1, 10 for K2 and 5 for K3, each measured twice in
+   turns);
+5. the three paths, each through ``mpc_tpu_torch.bench`` with every launch
+   count set to 0 just before it and read just after: the headline at batch
+   1024 (5 warm-up, 20 timed steps, then the batch-1 loop over 50 steps),
+   config 1 at batch 1024 (4 warm-up, 10 timed steps), ss_n40 at batch 256
+   (3 warm-up, 6 timed steps). Each path's kernel must have launched at
+   least once per PANOC iteration run (the slowest lane's, summed over
+   steps), every state must be finite, and the mean converged fraction must
+   be >= 0.99 (headline, config 1) or >= 0.98 (ss_n40, whose converged lanes
+   must also meet the constraints to delta = 1e-3).
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -33,14 +54,15 @@ import json
 import os
 import sys
 import time
+from typing import NamedTuple, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PSI_TOL = dict(rtol=2e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
-N_HORIZ, SUBSTEPS, TS, S = 12, 4, 0.05, 100
-CAPTURE_STEPS = 3           # closed-loop steps whose fan inputs are checked
+SUBSTEPS, TS, S = 4, 0.05, 100
 EXCUSED_MAX_SHARE = 0.01
+K3_MAX_CALLS = 40           # captured K3 calls checked per shape
 
 
 def fail(msg):
@@ -48,77 +70,147 @@ def fail(msg):
     sys.exit(1)
 
 
-def check(tag, psi, grad, u, y0, cltab, pvec, args):
+def check(tag, psi, grad, u, y0, cltab, pvec, args, model="pacejka",
+          al=None):
     """Hold kernel outputs against the plain version; fail on a lane the
     plain version meets the bar on and the kernel does not. ``args`` are the
     fan's ``(n_horiz, substeps, h, v_ref, weights)``."""
     from mpc_tpu_torch.kernels.check import compare_fan
-    r = compare_fan(psi, grad, u, y0, cltab, pvec, *args, PSI_TOL, GRAD_TOL)
+    r = compare_fan(psi, grad, u, y0, cltab, pvec, *args, PSI_TOL, GRAD_TOL,
+                    model=model, al=al)
     why = (f", where the plain f32 version misses float64 by >= "
            f"{r['excused_plain_miss_min']:.3g}x the bar" if r["excused"] else "")
     print(f"kernel check {tag}: {r['lanes']} lanes, {r['beyond_bar']} beyond "
           f"the bar ({r['excused']} ill-conditioned{why}; {r['failed']} "
-          f"failed); max abs err within the bar "
-          f"{r['max_abs_err_within_bar']:.3e}, over all lanes psi "
+          f"failed); max err within the bar "
+          f"{r['max_abs_err_within_bar']:.3e} abs, "
+          f"{r['max_rel_err_within_bar']:.3e} of the lane's scale; over all "
+          f"lanes psi "
           f"{r['max_abs_err_psi']:.3e} grad {r['max_abs_err_grad']:.3e}")
     if r["failed"] or r["excused"] > EXCUSED_MAX_SHARE * r["lanes"]:
         fail(f"{tag}: the kernel disagrees with its plain version: {r}")
     return r
 
 
-def drawn_inputs(E, road, seed):
+def drawn_inputs(E, n_horiz, sd, road, seed):
+    """Inputs inside the solver's box, driving forward: drive d in [0, 1],
+    steering in [-0.32, 0.32] (max_steer); the paths' own inputs, which
+    leave the box, are checked after these."""
     import numpy as np
     import torch
+    from mpc_tpu_torch.bench import lane_change_road
     from mpc_tpu_torch.ops.road import circle_centerline, straight_centerline
     rng = np.random.default_rng(seed)
-    # inside the solver's box, driving forward: drive d in [0, 1], steering
-    # in [-0.32, 0.32] (max_steer); the main path's own inputs, which leave
-    # the box, are checked after these
-    u = np.empty((E, 2 * N_HORIZ), np.float32)
-    u[:, 0::2] = rng.uniform(0.0, 1.0, (E, N_HORIZ))
-    u[:, 1::2] = rng.uniform(-0.32, 0.32, (E, N_HORIZ))
-    y0 = np.zeros((E, 6), np.float32)
+    u = np.empty((E, 2 * n_horiz), np.float32)
+    u[:, 0::2] = rng.uniform(0.0, 1.0, (E, n_horiz))
+    u[:, 1::2] = rng.uniform(-0.32, 0.32, (E, n_horiz))
+    y0 = np.zeros((E, sd), np.float32)
     y0[:, 0] = rng.uniform(-0.1, 0.5, E)
     y0[:, 1] = rng.uniform(-0.1, 0.1, E)
     y0[:, 2] = rng.uniform(-0.3, 0.3, E)
     y0[:, 3] = rng.uniform(0.2, 1.0, E)
-    # both roads pass through the origin heading along +x (the circle of
-    # radius 5 about (0, 5) at its lowest point), where the lanes start
-    cl = straight_centerline(S, device="cuda") if road == "straight" \
-        else circle_centerline(S, device="cuda")
+    # the straight and circle roads pass through the origin heading along +x
+    # (the circle of radius 5 about (0, 5) at its lowest point), the
+    # lane-change road starts there too
+    cl = {"straight": straight_centerline, "circle": circle_centerline,
+          "lane change": lambda n, device: lane_change_road(device)}[road](
+              S, device="cuda")
     return (torch.as_tensor(u, device="cuda"),
             torch.as_tensor(y0, device="cuda"), cl)
 
 
-def capture_fan_inputs():
-    """The inputs of every fan call in the first CAPTURE_STEPS closed-loop
-    steps of the benchmark at batch 1024, as the main path gives them:
-    ``{E: [(u, y0, cltab, pvec, args), ...]}``."""
+def drawn_al(E, n_horiz, log_sigma, seed):
+    """Multipliers in [0, 2] and penalties log-uniform over 10**log_sigma
+    for the bounded state constraints x^2 - offsets <= 0."""
+    import numpy as np
     import torch
-    from mpc_tpu_torch.bench import BATCH, ClosedLoop
+    from mpc_tpu_torch.control.mpc import STATE_CONSTRAINT_OFFSETS
+    rng = np.random.default_rng(seed)
+    m = 6 * n_horiz
+    lam = rng.uniform(0.0, 2.0, (E, m)).astype(np.float32)
+    sigma = (10.0 ** rng.uniform(*log_sigma, (E, m))).astype(np.float32)
+    return (torch.as_tensor(lam, device="cuda"),
+            torch.as_tensor(sigma, device="cuda"),
+            torch.tensor(STATE_CONSTRAINT_OFFSETS, device="cuda"),
+            torch.full((m,), -float("inf"), device="cuda"),
+            torch.zeros((m,), device="cuda"))
+
+
+def capture_fan_inputs(name, cell, steps):
+    """The inputs of every call of the fan wrapper ``fp.<name>`` in the
+    first ``steps`` closed-loop steps of ``cell``, as the path gives them:
+    ``[(step, args), ...]`` in call order, each ``args`` cloned."""
+    import torch
+    from mpc_tpu_torch.bench import ClosedLoop
     from mpc_tpu_torch.ops import fused_psi as fp
-    wrapper = fp.fan_value_and_grad
-    calls = {}
+    wrapper = getattr(fp, name)
+    calls, step = [], [0]
 
-    def recording(u, y0, cltab, pvec, *args):
-        calls.setdefault(u.shape[0], []).append(
-            (u.clone(), y0.clone(), cltab.clone(), pvec.clone(), args))
-        return wrapper(u, y0, cltab, pvec, *args)
+    def recording(*args):
+        calls.append((step[0], tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args)))
+        return wrapper(*args)
 
-    # the wrapper counts its launches on whatever fp.fan_value_and_grad
-    # names; the capture's launches land here and are dropped
+    # the wrapper counts its launches on whatever fp.<name> names; the
+    # capture's launches land here and are dropped
     recording.launches = 0
-    fp.fan_value_and_grad = recording
+    setattr(fp, name, recording)
     try:
-        loop = ClosedLoop()
-        ys, carry = loop.start(BATCH)
+        loop = ClosedLoop(cell)
+        ys, carry = loop.start(cell.batch)
         with torch.no_grad():
-            for _ in range(CAPTURE_STEPS):
+            for step[0] in range(steps):
                 ys, carry, _ = loop.step(ys, carry)
         torch.cuda.synchronize()
     finally:
-        fp.fan_value_and_grad = wrapper
+        setattr(fp, name, wrapper)
     return calls
+
+
+def spread(calls, cap):
+    """At most ``cap`` of ``calls``, evenly spaced, always with the first
+    and the last call of each step (the first and last outer iterations)."""
+    import numpy as np
+    if len(calls) <= cap:
+        return calls
+    keep = set(np.linspace(0, len(calls) - 1, cap - 4).round().astype(int))
+    for s in {st for st, _ in calls}:
+        idx = [i for i, (st, _) in enumerate(calls) if st == s]
+        keep.update((idx[0], idx[-1]))
+    return [calls[i] for i in sorted(keep)]
+
+
+def check_captured(kernel, calls, split, tag_extra=""):
+    """Run the kernel ``kernel`` on each captured call and hold all of one
+    shape together against the plain version. ``split(args) -> (u, y0,
+    cltab, pvec, al, fan_args)`` names a call's operands."""
+    import torch
+    reports = []
+    by_E = {}
+    for _, args in calls:
+        by_E.setdefault(args[0].shape[0], []).append(args)
+    for E, group in sorted(by_E.items(), reverse=True):
+        u0, y00, cl0, pv0, al0, fa0 = split(group[0])
+        us, y0s, psis, grads, als = [], [], [], [], []
+        for args in group:
+            u, y0, cltab, pvec, al, fan_args = split(args)
+            if fan_args != fa0 or not torch.equal(cltab, cl0) \
+                    or not torch.equal(pvec, pv0):
+                fail("the captured fan calls differ in road or parameters")
+            psi, grad = kernel(*args)
+            torch.cuda.synchronize()
+            us.append(u)
+            y0s.append(y0)
+            psis.append(psi)
+            grads.append(grad)
+            als.append(al)
+        al = None
+        if al0 is not None:
+            al = (torch.cat([a[0] for a in als]),
+                  torch.cat([a[1] for a in als]), *al0[2:])
+        reports.append((E, len(group), torch.cat(psis), torch.cat(grads),
+                        torch.cat(us), torch.cat(y0s), cl0, pv0, fa0, al))
+    return reports
 
 
 def median_ms(fn, n=50, warmup=3):
@@ -139,6 +231,174 @@ def median_ms(fn, n=50, warmup=3):
     return times[len(times) // 2]
 
 
+def time_pair(tag, kernel, plain, n_plain, info):
+    """Kernel and plain version in turns (plain, kernel, plain, kernel);
+    returns the smaller median of each."""
+    ms_plain = median_ms(plain, n=n_plain, warmup=1)
+    ms_kernel = median_ms(kernel)
+    ms_plain2 = median_ms(plain, n=n_plain, warmup=1)
+    ms_kernel2 = median_ms(kernel)
+    print(f"timing {tag}: kernel {ms_kernel:.4f} / {ms_kernel2:.4f} ms "
+          f"(median of 50), plain {ms_plain:.4f} / {ms_plain2:.4f} ms "
+          f"(median of {n_plain}); CUDA events; {info['nvidia_smi']}")
+    return min(ms_kernel, ms_kernel2), min(ms_plain, ms_plain2)
+
+
+def drive(cell, wrapper, fp, min_conv):
+    """Drive one path through ``mpc_tpu_torch.bench`` with every launch
+    count set to 0 just before it; fail unless its kernel ran on it."""
+    from mpc_tpu_torch.bench import run
+    wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
+                fp.al_fan_value_and_grad)
+    for w in wrappers:
+        w.launches = 0
+    r = run(cell)
+    launches = {w.__name__: w.launches for w in wrappers}
+    r["fan_kernel_launches"] = launches
+    print(json.dumps({"bench": dict(r, cell=cell.name)}))
+    line = (f"path {cell.name}: {r['solves_per_s']:.1f} solves/s, step p50 "
+            f"{r['p50_step_latency_s'] * 1e3:.2f} ms p99 "
+            f"{r['p99_step_latency_s'] * 1e3:.2f} ms, converged "
+            f"{r['mean_converged_fraction']:.4f}, inner iters mean "
+            f"{r['inner_iters_mean']:.2f} max {r['inner_iters_max']}, "
+            f"PANOC iterations run {r['panoc_iterations_run']}, launches "
+            f"{launches}")
+    if "single_solve_p50_s" in r:
+        line += (f", batch-1 p50 {r['single_solve_p50_s'] * 1e3:.2f} ms p99 "
+                 f"{r['single_solve_p99_s'] * 1e3:.2f} ms")
+    if "outer_iters_mean" in r:
+        line += (f", outer iters mean {r['outer_iters_mean']:.3f}, max "
+                 f"violation on converged lanes "
+                 f"{r['max_violation_converged']:.3e}")
+    print(line)
+    own = launches[wrapper.__name__]
+    if own < max(1, r["panoc_iterations_run"]):
+        fail(f"{cell.name}: the path launched its fan kernel {own} times "
+             f"for {r['panoc_iterations_run']} PANOC iterations")
+    if not r["states_finite"]:
+        fail(f"{cell.name}: non-finite plant state in the closed loop")
+    if not r["mean_converged_fraction"] >= min_conv:
+        fail(f"{cell.name}: mean converged fraction "
+             f"{r['mean_converged_fraction']} < {min_conv}")
+    if r.get("max_violation_converged", 0.0) > cell.alm_cfg.delta:
+        fail(f"{cell.name}: a converged lane violates the constraints by "
+             f"{r['max_violation_converged']} > delta")
+    return r, own
+
+
+class Kernel(NamedTuple):
+    """One fan kernel, its path and its checks."""
+    label: str           # K1, K2, K3
+    name: str            # the row's name in the kernel table
+    variant: str
+    wrapper: str         # its wrapper in mpc_tpu_torch.ops.fused_psi
+    model: str
+    al: bool             # the augmented-Lagrangian operands follow pvec
+    cell: str            # its path: a cell of mpc_tpu_torch.bench
+    n_horiz: int
+    sd: int              # state dimension
+    drawn: tuple         # ((E, road, VehicleParams kwargs, log_sigma), ...)
+    seed: int            # of the drawn inputs; the AL operands use seed + 100
+    steps: int           # closed-loop steps whose fan calls are captured
+    shapes: tuple        # the path's fan sizes: candidate fan, init pair
+    cap: Optional[int]   # captured calls checked per shape (None: all)
+    n_plain: int         # timed runs of the plain version
+    min_conv: float      # the path's least mean converged fraction
+
+
+KERNELS = (
+    Kernel("K1", "fused_psi_fan", "K1, model=pacejka", "fan_value_and_grad",
+           "pacejka", False, "HEADLINE", 12, 6,
+           tuple((E, road, {}, None) for E in (1, 37, 5120)
+                 for road in ("straight", "circle"))
+           + ((37, "circle", dict(mass=0.25, cm1=0.4), None),),
+           0, 3, (5120, 2048), None, 50, 0.99),
+    Kernel("K2", "fused_psi_fan_kin", "K2, model=simplified",
+           "kin_fan_value_and_grad", "simplified", False, "CONFIG1", 20, 4,
+           tuple((E, road, {}, None) for E in (1, 37, 5120)
+                 for road in ("straight", "circle")),
+           100, 2, (5120, 2048), None, 10, 0.99),
+    Kernel("K3", "fused_psi_fan_al", "K3, al_ls", "al_fan_value_and_grad",
+           "pacejka", True, "SS_N40", 40, 6,
+           tuple((E, "lane change", {}, ls) for E in (1, 37, 1280)
+                 for ls in ((-1, 3), (3, 9))),
+           200, 2, (1280, 512), K3_MAX_CALLS, 5, 0.98),
+)
+
+
+def split(k, args):
+    """A wrapper call's operands: ``(u, y0, cltab, pvec, al, fan_args)``."""
+    u, y0, cltab, pvec = args[:4]
+    if k.al:
+        return u, y0, cltab, pvec, tuple(args[4:9]), tuple(args[9:])
+    return u, y0, cltab, pvec, None, tuple(args[4:])
+
+
+def kernel_phase(k, fp, bench, info):
+    """Phases 3 and 4 for one kernel: its drawn and captured checks, then
+    the timing of kernel and plain version at the path's fan shapes.
+    Returns ``(lanes, excused, max_abs_err, max_rel_err, lane_term, ms,
+    plain_ms)``, the times at the candidate-fan shape."""
+    import torch
+    from mpc_tpu_torch.models.params import VehicleParams
+    wrapper = getattr(fp, k.wrapper)
+    fan_args = (k.n_horiz, SUBSTEPS, TS / SUBSTEPS, 1.0,
+                fp.DEFAULT_VEHICLE_WEIGHTS)
+    reports = []
+    for i, (E, road, p_kw, log_sigma) in enumerate(k.drawn):
+        u, y0, cl = drawn_inputs(E, k.n_horiz, k.sd, road, seed=k.seed + i)
+        cltab, pvec = fp.fan_params(cl, VehicleParams(**p_kw))
+        al = drawn_al(E, k.n_horiz, log_sigma, seed=k.seed + 100 + i) \
+            if k.al else None
+        psi, grad = wrapper(u, y0, cltab, pvec, *(al or ()), *fan_args)
+        torch.cuda.synchronize()
+        tag = f"{k.label} E={E} {road}" + (" p*" if p_kw else "") \
+            + (f" sigma in 1e{log_sigma}" if k.al else "")
+        reports.append(check(tag, psi, grad, u, y0, cltab, pvec, fan_args,
+                             model=k.model, al=al))
+
+    cell = getattr(bench, k.cell)
+    t0 = time.perf_counter()
+    captured = capture_fan_inputs(k.wrapper, cell, k.steps)
+    by_E = {}
+    for c in captured:
+        by_E.setdefault(c[1][0].shape[0], []).append(c)
+    print(f"{k.label}: captured {len(captured)} fan calls of {k.steps} "
+          f"closed-loop steps of {cell.name} at batch {cell.batch} in "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{len(v)} at E={E}" for E, v in sorted(by_E.items()))
+          + (f"); checking at most {k.cap} per shape" if k.cap else ")"))
+    if sorted(by_E) != sorted(k.shapes):
+        fail(f"{cell.name} gave its fan shapes {sorted(by_E)}, not "
+             f"{sorted(k.shapes)}")
+    calls = [c for v in by_E.values()
+             for c in (spread(v, k.cap) if k.cap else v)]
+    for E, n, psi, grad, u, y0, cltab, pvec, fa, al in check_captured(
+            wrapper, calls, lambda args: split(k, args)):
+        reports.append(check(f"{k.label} {cell.name} E={E} ({n} calls)", psi,
+                             grad, u, y0, cltab, pvec, fa, model=k.model,
+                             al=al))
+    lanes = sum(r["lanes"] for r in reports)
+    excused = sum(r["excused"] for r in reports)
+    err = max(r["max_abs_err_within_bar"] for r in reports)
+    rel = max(r["max_rel_err_within_bar"] for r in reports)
+    need = max(r["lane_term_needed"] for r in reports)
+    print(f"kernel check {k.label}: {lanes} lanes, {excused} ill-conditioned "
+          f"lanes excused, max err over the rest {err:.3e} abs, {rel:.3e} of "
+          f"the lane's scale, lane term needed {need:.3e}")
+
+    times = []
+    for E in k.shapes:
+        args = by_E[E][0][1]
+        u, y0, cltab, pvec, al, fa = split(k, args)
+        times.append(time_pair(
+            f"{k.label} E={E}", lambda: wrapper(*args),
+            lambda: fp.fan_value_and_grad_reference(u, y0, cltab, pvec, *fa,
+                                                    model=k.model, al=al),
+            k.n_plain, info))
+    return (lanes, excused, err, rel, need) + times[0]
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mpc_tpu_torch")):
         fail("mpc_tpu_torch/ is not beside chip_smoke.py: run it from a "
@@ -149,12 +409,13 @@ def main():
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    from mpc_tpu_torch.bench import gpu_info, run
-    info = gpu_info()
+    from mpc_tpu_torch import bench
+    info = bench.gpu_info()
     kind = torch.cuda.get_device_name(0)
     print(info["nvidia_smi"])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
     # ---- 2. build ---------------------------------------------------------
     from mpc_tpu_torch.kernels import build as kbuild
@@ -168,102 +429,27 @@ def main():
         if "registers" in line or "spill" in line or "error" in line:
             print(f"  nvcc: {line.strip()}")
 
-    # ---- 3. kernel against its plain version ------------------------------
-    from mpc_tpu_torch.models.params import VehicleParams
+    # ---- 3, 4. kernel checks and timing -----------------------------------
     from mpc_tpu_torch.ops import fused_psi as fp
-    fan_args = (N_HORIZ, SUBSTEPS, TS / SUBSTEPS, 1.0,
-                fp.DEFAULT_VEHICLE_WEIGHTS)
-    cases = [(E, road, VehicleParams()) for E in (1, 37, 5120)
-             for road in ("straight", "circle")]
-    cases.append((37, "circle", VehicleParams(mass=0.25, cm1=0.4)))
-    reports = []
-    for i, (E, road, p) in enumerate(cases):
-        u, y0, cl = drawn_inputs(E, road, seed=i)
-        cltab, pvec = fp.fan_params(cl, p)
-        psi, grad = fp.fan_value_and_grad(u, y0, cltab, pvec, *fan_args)
-        torch.cuda.synchronize()
-        tag = f"E={E} {road} {'default p' if p == VehicleParams() else 'p*'}"
-        reports.append(check(tag, psi, grad, u, y0, cltab, pvec, fan_args))
+    measured = [kernel_phase(k, fp, bench, info) for k in KERNELS]
+    print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
 
-    t0 = time.perf_counter()
-    captured = capture_fan_inputs()
-    print(f"captured the fan inputs of {CAPTURE_STEPS} closed-loop steps at "
-          f"batch 1024 in {time.perf_counter() - t0:.1f} s: "
-          + ", ".join(f"{len(v)} calls at E={E}"
-                      for E, v in sorted(captured.items())))
-    if sorted(captured) != [2048, 5120]:
-        fail(f"the main path gave the fan the shapes {sorted(captured)}, "
-             f"expected E=2048 (init pairs) and E=5120 (candidate fans)")
-    for E, calls in sorted(captured.items()):
-        us, y0s, psis, grads = [], [], [], []
-        for u, y0, cltab, pvec, args in calls:
-            if args != calls[0][4] or not torch.equal(cltab, calls[0][2]) \
-                    or not torch.equal(pvec, calls[0][3]):
-                fail("the captured fan calls differ in road or parameters")
-            psi, grad = fp.fan_value_and_grad(u, y0, cltab, pvec, *args)
-            torch.cuda.synchronize()
-            us.append(u)
-            y0s.append(y0)
-            psis.append(psi)
-            grads.append(grad)
-        reports.append(check(
-            f"main path E={E} ({len(calls)} calls)", torch.cat(psis),
-            torch.cat(grads), torch.cat(us), torch.cat(y0s), *calls[0][2:]))
-    lanes = sum(r["lanes"] for r in reports)
-    excused = sum(r["excused"] for r in reports)
-    max_err = max(r["max_abs_err_within_bar"] for r in reports)
-    print(f"kernel check: {lanes} lanes, {excused} ill-conditioned lanes "
-          f"excused, max abs err over the rest {max_err:.3e}")
+    # ---- 5. the three paths -----------------------------------------------
+    launches = [drive(getattr(bench, k.cell), getattr(fp, k.wrapper), fp,
+                      k.min_conv)[1] for k in KERNELS]
+    print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 4. timing ----------------------------------------------------------
-    timing = {}
-    for E in (5120, 2048):
-        u, y0, cltab, pvec, rest = captured[E][0]
-        args = (u, y0, cltab, pvec, *rest)
-        ms_plain = median_ms(lambda: fp.fan_value_and_grad_reference(*args))
-        ms_kernel = median_ms(lambda: fp.fan_value_and_grad(*args))
-        ms_plain2 = median_ms(lambda: fp.fan_value_and_grad_reference(*args))
-        ms_kernel2 = median_ms(lambda: fp.fan_value_and_grad(*args))
-        timing[E] = (min(ms_kernel, ms_kernel2), min(ms_plain, ms_plain2))
-        print(f"timing E={E}: kernel {ms_kernel:.4f} / {ms_kernel2:.4f} ms, "
-              f"plain {ms_plain:.4f} / {ms_plain2:.4f} ms "
-              f"(median of 50, CUDA events; {info['nvidia_smi']})")
-
-    # ---- 5. main path -------------------------------------------------------
-    fp.fan_value_and_grad.launches = 0
-    r = run()
-    launches = fp.fan_value_and_grad.launches
-    r["device"] = kind
-    r["power_limit"] = info["power_limit"]
-    r["fan_kernel_launches"] = launches
-    print(json.dumps({"bench": r}))
-    print(f"main path: {r['solves_per_s']:.1f} solves/s, step p50 "
-          f"{r['p50_step_latency_s'] * 1e3:.2f} ms p99 "
-          f"{r['p99_step_latency_s'] * 1e3:.2f} ms, converged "
-          f"{r['mean_converged_fraction']:.4f}, inner iters mean "
-          f"{r['inner_iters_mean']:.2f} max {r['inner_iters_max']}, "
-          f"batch-1 p50 {r['single_solve_p50_s'] * 1e3:.2f} ms p99 "
-          f"{r['single_solve_p99_s'] * 1e3:.2f} ms, fan launches {launches}")
-    if launches < max(1, r["panoc_iterations_run"]):
-        fail(f"the main path launched the fan kernel {launches} times for "
-             f"{r['panoc_iterations_run']} PANOC iterations")
-    if not r["states_finite"]:
-        fail("non-finite plant state in the closed loop")
-    if not r["mean_converged_fraction"] >= 0.99:
-        fail(f"mean converged fraction {r['mean_converged_fraction']} < 0.99")
-
-    print(json.dumps({"kernels": [{
-        "name": "fused_psi_fan",
-        "route": "cuda",
-        "source": "mpc_tpu_torch/csrc/fused_psi.cu",
-        "replaces": "mpc_tpu/ops/fused_psi.py:321",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "lanes_checked": lanes,
-        "lanes_excused": excused,
-        "ms": timing[5120][0],
-        "plain_ms": timing[5120][1],
-    }]}))
+    rows = []
+    for k, n, (lanes, excused, err, rel, need, ms, plain_ms) in zip(
+            KERNELS, launches, measured):
+        rows.append({
+            "name": k.name, "variant": k.variant, "route": "cuda",
+            "source": "mpc_tpu_torch/csrc/fused_psi.cu",
+            "replaces": "mpc_tpu/ops/fused_psi.py:321",
+            "launches": n, "max_abs_err": err, "max_rel_err": rel,
+            "lane_term_needed": need, "lanes_checked": lanes,
+            "lanes_excused": excused, "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -1,16 +1,29 @@
-"""Benchmark of the port's main path: batched warm-started MPC solves on one
-NVIDIA GPU.
+"""Benchmark of the port's paths: batched warm-started MPC solves on one
+NVIDIA GPU, one closed loop per cell.
 
-The counterpart of the repository's root ``bench.py`` (the JAX package on a
-TPU), with the same shape: the Pacejka vehicle OCP, N=12, 24 decision
-variables, 100-point straight centerline, ``AlmConfig(eps=1e-4)``,
-``PanocConfig(lbfgs_memory=12, max_iter=300)``, batch 1024, 5 warm-up and 20
-timed closed-loop steps with the plant stepped by the same ``f_d``, then a
-batch-1 closed loop for the single-solve latency. The candidate fan goes
-through the CUDA kernel. ``solves/s`` is all the timed solves over all the
-timed wall time; the root ``bench.py`` divides the batch by the p50 step.
+- ``headline`` (the default): the counterpart of the repository's root
+  ``bench.py`` (the JAX package on a TPU), with the same shape: the Pacejka
+  vehicle OCP, N=12, 24 decision variables, 100-point straight centerline,
+  ``AlmConfig(eps=1e-4)``, ``PanocConfig(lbfgs_memory=12, max_iter=300)``,
+  batch 1024, 5 warm-up and 20 timed closed-loop steps with the plant
+  stepped by the same ``f_d``, then a batch-1 closed loop for the
+  single-solve latency. Its fan is kernel K1.
+- ``config1``: the kinematic bicycle on the straight road, N=20,
+  ``AlmConfig(eps=1e-4)``, ``PanocConfig(lbfgs_memory=20, max_iter=200)``,
+  batch 1024, 4 warm-up and 10 timed steps, initial states
+  ``[0, U(-0.05, 0.05), 0, U(0.2, 1.0)]`` (examples/bench_suite.py:116-128).
+  Its fan is kernel K2.
+- ``ss_n40``: the Pacejka OCP with bounded state constraints, single
+  shooting at N=40 through the ALM general path, on the lane-change Bezier
+  road, ``AlmConfig(eps=1e-3, delta=1e-3, max_iter=8, eps_0=1e-2,
+  sigma_0=1e3)``, ``PanocConfig(lbfgs_memory=40, max_iter=150)``, batch 256,
+  3 warm-up and 6 timed steps (examples/exp_ms.py:97-119). Its fan is
+  kernel K3.
 
-    python -m mpc_tpu_torch.bench
+``solves/s`` is all the timed solves over all the timed wall time; the root
+``bench.py`` divides the batch by the p50 step.
+
+    python -m mpc_tpu_torch.bench [headline|config1|ss_n40]
 
 Prints a detail JSON line (with the card's name and power limit) and, last,
 the result JSON line. Without a CUDA device it exits with an error: a
@@ -19,18 +32,23 @@ measurement is never taken on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
+import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
 from mpc_tpu_torch.config import AlmConfig, PanocConfig
 from mpc_tpu_torch.control.mpc import build_vehicle_controller
-from mpc_tpu_torch.models.bicycle import pacejka_dynamics
+from mpc_tpu_torch.models.bicycle import pacejka_dynamics, simplified_dynamics
 from mpc_tpu_torch.models.integrators import discretize
 from mpc_tpu_torch.models.params import VehicleParams
+from mpc_tpu_torch.ops.bezier import (bezier_centerline,
+                                      lane_change_control_points)
 from mpc_tpu_torch.ops.road import straight_centerline
 
 REALTIME_BUDGET_S = 0.05   # Ts, the control interval
@@ -60,27 +78,94 @@ def initial_states(batch: int, seed: int = SEED) -> np.ndarray:
     return y0s
 
 
+def config1_states(batch: int, seed: int = SEED) -> np.ndarray:
+    """[0, U(-0.05, 0.05), 0, U(0.2, 1.0)], drawn lane by lane as
+    examples/bench_suite.py:123-125 draws them."""
+    rng = np.random.default_rng(seed)
+    return np.stack([np.array([0, rng.uniform(-0.05, 0.05), 0,
+                               rng.uniform(0.2, 1.0)], np.float32)
+                     for _ in range(batch)])
+
+
+def lane_change_road(device=None) -> torch.Tensor:
+    """The 100-point lane-change Bezier road of examples/exp_ms.py:97-98."""
+    pts = lane_change_control_points(5.0, device=device).control_points
+    return bezier_centerline(pts * 0.01, size=100)
+
+
+def ss_n40_states(batch: int, seed: int = SEED) -> np.ndarray:
+    """At the road's start, heading along it: [cl0_x, cl0_y + U(-0.02,
+    0.02), heading of cl1 - cl0, U(0.2, 0.8), 0, 0]
+    (examples/exp_ms.py:99-106)."""
+    cl = lane_change_road().numpy()
+    d0 = cl[1] - cl[0]
+    rng = np.random.default_rng(seed)
+    y0s = np.zeros((batch, 6), np.float32)
+    y0s[:, 0] = cl[0, 0]
+    y0s[:, 1] = cl[0, 1] + rng.uniform(-0.02, 0.02, batch)
+    y0s[:, 2] = np.arctan2(np.float32(d0[1]), np.float32(d0[0]))
+    y0s[:, 3] = rng.uniform(0.2, 0.8, batch)
+    return y0s
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """One benchmark configuration: controller, plant, road, lanes, steps."""
+    name: str
+    model: str
+    n_horiz: int
+    alm_cfg: AlmConfig
+    panoc_cfg: PanocConfig
+    road: Callable[..., torch.Tensor]
+    states: Callable[[int], np.ndarray]
+    batch: int
+    n_warmup: int
+    n_steps: int
+    bound_state_constraints: bool = False
+    batch1_latency: bool = False
+
+
+HEADLINE = Cell(
+    "headline", "pacejka", N_HORIZ, AlmConfig(eps=1e-4),
+    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300),
+    lambda device: straight_centerline(CENTERLINE_POINTS, device=device),
+    initial_states, BATCH, N_WARMUP, N_STEPS, batch1_latency=True)
+CONFIG1 = Cell(
+    "config1", "simplified", 20, AlmConfig(eps=1e-4),
+    PanocConfig(lbfgs_memory=20, max_iter=200),
+    lambda device: straight_centerline(CENTERLINE_POINTS, device=device),
+    config1_states, 1024, 4, 10)
+SS_N40 = Cell(
+    "ss_n40", "pacejka", 40,
+    AlmConfig(eps=1e-3, delta=1e-3, max_iter=8, eps_0=1e-2, sigma_0=1e3),
+    PanocConfig(lbfgs_memory=40, max_iter=150), lane_change_road,
+    ss_n40_states, 256, 3, 6, bound_state_constraints=True)
+CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40)}
+
+
 class ClosedLoop:
-    """The benchmark's controller, plant and road on the card;
+    """A cell's controller, plant and road on the card;
     ``step(ys, carry) -> (ys, carry, result)`` is one closed-loop step."""
 
-    def __init__(self):
+    def __init__(self, cell: Cell = HEADLINE):
         if not torch.cuda.is_available():
             raise RuntimeError("mpc_tpu_torch.bench: no CUDA device; the "
                                "benchmark runs only on a GPU")
         dev = self.device = torch.device("cuda")
+        self.cell = cell
         self.ctrl = build_vehicle_controller(
-            n_horiz=N_HORIZ, alm_cfg=AlmConfig(eps=1e-4),
-            panoc_cfg=PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300),
-            device=dev)
+            n_horiz=cell.n_horiz, alm_cfg=cell.alm_cfg,
+            panoc_cfg=cell.panoc_cfg, model=cell.model,
+            bound_state_constraints=cell.bound_state_constraints, device=dev)
         self.params = VehicleParams()
-        self.f_d = discretize(pacejka_dynamics)
-        self.centerline = straight_centerline(CENTERLINE_POINTS, device=dev)
+        self.f_d = discretize(pacejka_dynamics if cell.model == "pacejka"
+                              else simplified_dynamics)
+        self.centerline = cell.road(device=dev)
 
     def start(self, batch: int):
         """Cold carry for ``batch`` lanes and their plant states: the first
-        ``batch`` rows of the batch-1024 initial states."""
-        ys = torch.as_tensor(initial_states(BATCH)[:batch],
+        ``batch`` rows of the cell's initial states."""
+        ys = torch.as_tensor(self.cell.states(self.cell.batch)[:batch],
                              device=self.device)
         return ys, self.ctrl.init_carry(batch, self.device)
 
@@ -91,10 +176,10 @@ class ClosedLoop:
 
 
 @torch.no_grad()
-def run() -> dict:
-    """Run the closed loop at batch 1024 and the batch-1 latency loop on the
-    card; return the measurements."""
-    loop = ClosedLoop()
+def run(cell: Cell = HEADLINE) -> dict:
+    """Run the cell's closed loop at its batch (and, for the headline, the
+    batch-1 latency loop) on the card; return the measurements."""
+    loop = ClosedLoop(cell)
     sync = torch.cuda.synchronize
     iters_run = []          # per step: the slowest lane's PANOC iterations
 
@@ -103,58 +188,74 @@ def run() -> dict:
         iters_run.append(res.inner_iterations.max())
         return ys, carry, res
 
-    ys, carry = loop.start(BATCH)
-    for _ in range(N_WARMUP):
+    ys, carry = loop.start(cell.batch)
+    for _ in range(cell.n_warmup):
         ys, carry, _ = step(ys, carry)
     sync()
-    times, conv, iters = [], [], []
-    for _ in range(N_STEPS):
+    times, conv, iters, outer, viol = [], [], [], [], []
+    for _ in range(cell.n_steps):
         t0 = time.perf_counter()
         ys, carry, res = step(ys, carry)
         sync()
         times.append(time.perf_counter() - t0)
         conv.append(res.converged.float().mean())
         iters.append(res.inner_iterations)
+        outer.append(res.outer_iterations)
+        viol.append(torch.where(res.converged, res.constraint_violation,
+                                torch.zeros_like(res.constraint_violation)))
     times = np.asarray(times)
     iters = torch.stack(iters).float()
-
-    y1, c1 = loop.start(1)
-    for _ in range(N_WARMUP):
-        y1, c1, _ = step(y1, c1)
-    sync()
-    lat = []
-    for _ in range(N_LATENCY):
-        t0 = time.perf_counter()
-        y1, c1, _ = step(y1, c1)
-        sync()
-        lat.append(time.perf_counter() - t0)
-    lat = np.asarray(lat)
-
-    return {
-        "batch": BATCH, "n_horiz": N_HORIZ, "n_steps": N_STEPS,
+    r = {
+        "batch": cell.batch, "n_horiz": cell.n_horiz, "n_steps": cell.n_steps,
         # all the timed work over all the timed wall time
-        "solves_per_s": BATCH * N_STEPS / float(times.sum()),
+        "solves_per_s": cell.batch * cell.n_steps / float(times.sum()),
         "p50_step_latency_s": float(np.percentile(times, 50)),
         "p99_step_latency_s": float(np.percentile(times, 99)),
         "mean_converged_fraction": float(torch.stack(conv).mean()),
         "inner_iters_mean": float(iters.mean()),
         "inner_iters_max": int(iters.max()),
-        "single_solve_p50_s": float(np.percentile(lat, 50)),
-        "single_solve_p99_s": float(np.percentile(lat, 99)),
-        "realtime_budget_s": REALTIME_BUDGET_S,
-        "states_finite": bool(torch.isfinite(ys).all()
-                              and torch.isfinite(y1).all()),
-        "panoc_iterations_run": int(torch.stack(iters_run).sum()),
     }
+    finite = bool(torch.isfinite(ys).all())
+    if cell.bound_state_constraints:
+        r["outer_iters_mean"] = float(torch.stack(outer).float().mean())
+        r["max_violation_converged"] = float(torch.stack(viol).max())
+    if cell.batch1_latency:
+        y1, c1 = loop.start(1)
+        for _ in range(cell.n_warmup):
+            y1, c1, _ = step(y1, c1)
+        sync()
+        lat = []
+        for _ in range(N_LATENCY):
+            t0 = time.perf_counter()
+            y1, c1, _ = step(y1, c1)
+            sync()
+            lat.append(time.perf_counter() - t0)
+        lat = np.asarray(lat)
+        r.update({
+            "single_solve_p50_s": float(np.percentile(lat, 50)),
+            "single_solve_p99_s": float(np.percentile(lat, 99)),
+            "realtime_budget_s": REALTIME_BUDGET_S,
+        })
+        finite = finite and bool(torch.isfinite(y1).all())
+    r["states_finite"] = finite
+    r["panoc_iterations_run"] = int(torch.stack(iters_run).sum())
+    return r
 
 
-def main():
-    r = run()
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    name = argv[0] if argv else "headline"
+    if name not in CELLS or len(argv) > 1:
+        raise SystemExit(f"usage: python -m mpc_tpu_torch.bench "
+                         f"[{'|'.join(CELLS)}]")
+    r = run(CELLS[name])
     info = gpu_info()
     r["device"] = torch.cuda.get_device_name(0)
     r["power_limit"] = info["power_limit"]
     print(json.dumps({"detail": r}))
-    print(json.dumps({"metric": "mpc_solves_per_s", "value": r["solves_per_s"],
+    metric = "mpc_solves_per_s" if name == "headline" \
+        else f"mpc_solves_per_s_{name}"
+    print(json.dumps({"metric": metric, "value": r["solves_per_s"],
                       "unit": "solves/s", "device": r["device"],
                       "power_limit": info["power_limit"]}))
 

@@ -16,11 +16,13 @@ import torch
 from torch import nn
 
 from mpc_tpu_torch.config import AlmConfig, PanocConfig
-from mpc_tpu_torch.models.bicycle import pacejka_dynamics
+from mpc_tpu_torch.models.bicycle import (pacejka_dynamics,
+                                           simplified_dynamics)
 from mpc_tpu_torch.models.integrators import discretize
 from mpc_tpu_torch.models.params import VehicleParams
 from mpc_tpu_torch.ops.costs import DEFAULT_VEHICLE_WEIGHTS, vehicle_stage_cost
-from mpc_tpu_torch.ops.fused_psi import fan_params, make_vehicle_cost_multi
+from mpc_tpu_torch.ops.fused_psi import (fan_params, make_vehicle_al_multi,
+                                         make_vehicle_cost_multi)
 from mpc_tpu_torch.solver.alm import AlmResult, make_alm_solver
 from mpc_tpu_torch.solver.problem import Box, Problem, build_ocp_problem
 
@@ -106,12 +108,18 @@ def build_vehicle_ocp(n_horiz: int = 12, v_ref: float = 1.0,
                       obstacle_weight: float = 0.0,
                       device=None) -> Problem:
     """Vehicle OCP on the dense full-centerline path, fused
-    (mpc_tpu/control/mpc.py:141-274 with ``fused=True``).
+    (mpc_tpu/control/mpc.py:141-274 with ``fused`` set).
 
-    The PANOC candidate fan goes through ``ops.fused_psi.fan_value_and_grad``:
-    the CUDA kernel on a CUDA device, its plain version on the CPU. The
-    kinematic model (its fan is kernel K2), the windowed search, the obstacle
-    field and bounded state constraints are not ported yet and raise.
+    ``model="pacejka"``: the 6-state single-track model, whose candidate fan
+    is ``ops.fused_psi.fan_value_and_grad`` (K1); its quadratic state
+    constraints ``x^2 - STATE_CONSTRAINT_OFFSETS`` are built per stage and
+    left unbounded, unless ``bound_state_constraints`` bounds them above by
+    0, and then the ALM general path evaluates its fan through
+    ``al_fan_value_and_grad`` (K3). ``model="simplified"``: the 4-state
+    kinematic bicycle with input boxes only (no state constraints), whose
+    fan is ``kin_fan_value_and_grad`` (K2). Each fan runs its CUDA kernel on
+    a CUDA device and its plain version on the CPU. The windowed search and
+    the obstacle field are not ported yet and raise.
     """
     if window is not None:
         raise NotImplementedError("mpc_tpu_torch: only the dense "
@@ -119,30 +127,42 @@ def build_vehicle_ocp(n_horiz: int = 12, v_ref: float = 1.0,
     if obstacle_weight > 0.0:
         raise NotImplementedError("mpc_tpu_torch: the obstacle field "
                                   "(ops/potential_field.py) is not ported yet")
-    if bound_state_constraints:
-        raise NotImplementedError("mpc_tpu_torch: bounded state constraints "
-                                  "need the ALM general path, not ported yet")
+    if model == "pacejka":
+        state_dim, dynamics = 6, pacejka_dynamics
+    elif model == "simplified":
+        state_dim, dynamics = 4, simplified_dynamics
+    else:
+        raise ValueError(f"unknown model {model!r}")
     multi = make_vehicle_cost_multi(n_horiz, ts=ts, v_ref=v_ref,
                                     weights=weights, model=model)
     if params is None:
         params = VehicleParams()
-    f_d = discretize(pacejka_dynamics, ts=ts)
+    f_d = discretize(dynamics, ts=ts)
 
     def stage_cost(x, u, param):
         return vehicle_stage_cost(x, u, param["centerline"], v_ref, weights)
 
     lim = torch.tensor([float(params.max_drive), float(params.max_steer)],
                        dtype=torch.float32, device=device).repeat(n_horiz)
-    offs = torch.tensor(STATE_CONSTRAINT_OFFSETS, dtype=torch.float32,
-                        device=device)
 
-    def stage_constraints(x, u, param):
-        return x ** 2 - offs
+    stage_constraints, n_stage, D = None, 0, None
+    if state_dim == 6:
+        offs = torch.tensor(STATE_CONSTRAINT_OFFSETS, dtype=torch.float32,
+                            device=device)
+
+        def stage_constraints(x, u, param):
+            return x ** 2 - offs
+
+        n_stage = 6
+        if bound_state_constraints:
+            m = n_stage * n_horiz
+            D = Box(torch.full((m,), -float("inf"), device=device),
+                    torch.zeros((m,), device=device))
 
     problem = build_ocp_problem(
-        f_d, stage_cost, n_horiz, state_dim=6, input_dim=2,
+        f_d, stage_cost, n_horiz, state_dim=state_dim, input_dim=2,
         C=Box(lower=-lim, upper=lim), stage_constraints=stage_constraints,
-        n_stage_constraints=6)
+        n_stage_constraints=n_stage, D=D)
 
     def param_prep(param):
         cltab, pvec = fan_params(param["centerline"], param["p"])
@@ -151,8 +171,18 @@ def build_vehicle_ocp(n_horiz: int = 12, v_ref: float = 1.0,
     def cost_multi(cands, param):
         return multi(cands, param["y0"], param["cltab"], param["pvec"])
 
+    al_multi = None
+    if D is not None:
+        al = make_vehicle_al_multi(n_horiz, STATE_CONSTRAINT_OFFSETS,
+                                   D.lower, D.upper, ts=ts, v_ref=v_ref,
+                                   weights=weights, device=device)
+
+        def al_multi(cands, param, lam, sigma):
+            return al(cands, param["y0"], param["cltab"], param["pvec"],
+                      lam, sigma)
+
     return dataclasses.replace(problem, cost_multi=cost_multi,
-                               param_prep=param_prep)
+                               al_multi=al_multi, param_prep=param_prep)
 
 
 def build_vehicle_controller(n_horiz: int = 12, v_ref: float = 1.0,
@@ -160,6 +190,7 @@ def build_vehicle_controller(n_horiz: int = 12, v_ref: float = 1.0,
                              params: Optional[VehicleParams] = None,
                              alm_cfg: Optional[AlmConfig] = None,
                              panoc_cfg: Optional[PanocConfig] = None,
+                             bound_state_constraints: bool = False,
                              model: str = "pacejka",
                              weights=DEFAULT_VEHICLE_WEIGHTS,
                              device=None) -> MpcController:
@@ -167,6 +198,7 @@ def build_vehicle_controller(n_horiz: int = 12, v_ref: float = 1.0,
     (mpc_tpu/control/mpc.py:277-311): warm start ``U = [1, 0] * N``, L-BFGS
     memory N, the tolerance from ``AlmConfig``."""
     problem = build_vehicle_ocp(n_horiz, v_ref, ts, params, weights=weights,
+                                bound_state_constraints=bound_state_constraints,
                                 model=model, device=device)
     if alm_cfg is None:
         alm_cfg = AlmConfig()

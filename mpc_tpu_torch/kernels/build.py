@@ -74,17 +74,22 @@ def build(name: str) -> dict:
 
 
 def load_fused_psi() -> ctypes.CDLL:
-    """The fan kernel's library (``csrc/fused_psi.cu``), built on first use."""
+    """The fan kernels' library (``csrc/fused_psi.cu``: K1
+    ``mpc_fused_psi_fan``, K2 ``mpc_fused_psi_fan_kin``, K3
+    ``mpc_fused_psi_fan_al``), built on first use."""
     with _lock:
         lib = _loaded.get("fused_psi")
         if lib is None:
             lib = ctypes.CDLL(build("fused_psi")["path"])
-            fn = lib.mpc_fused_psi_fan
-            fn.argtypes = ([ctypes.c_void_p] * 6
-                           + [ctypes.c_int] * 4
-                           + [ctypes.c_double]
-                           + [ctypes.c_float] * 7
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            # after the pointers: E, n_horiz, n_cl, substeps, h, v_ref,
+            # the 6 weights and the stream
+            tail = ([ctypes.c_int] * 4 + [ctypes.c_double]
+                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+            for name, n_ptrs in (("mpc_fused_psi_fan", 6),
+                                 ("mpc_fused_psi_fan_kin", 6),
+                                 ("mpc_fused_psi_fan_al", 11)):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
+                fn.restype = ctypes.c_int
             _loaded["fused_psi"] = lib
         return lib

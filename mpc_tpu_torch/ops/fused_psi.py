@@ -1,26 +1,37 @@
 """The PANOC candidate fan: value and gradient of the vehicle OCP cost at E
-independent evaluation lanes (port of mpc_tpu/ops/fused_psi.py, kernel K1).
+independent evaluation lanes (port of mpc_tpu/ops/fused_psi.py, kernels
+K1-K3).
 
 For each lane e (E = scenarios x candidates): an N-stage rollout of
-``substeps`` RK4 steps of the Pacejka ODE from ``y0[e]`` under
+``substeps`` RK4 steps of the vehicle ODE from ``y0[e]`` under
 ``u[e] = [d0, delta0, d1, delta1, ...]``; at each stage the nearest of the
 S-1 centerline candidates with its previous/next points (``make_cltab``);
 the tracking stage cost; ``psi[e]``, the sum of stage costs; and
-``grad[e] = d psi[e] / d u[e]``.
+``grad[e] = d psi[e] / d u[e]``. The three variants of the TPU kernel
+(``_eval_pallas``) are:
+
+- K1, ``model="pacejka"``: the 6-state Pacejka single-track model;
+- K2, ``model="simplified"``: the 4-state kinematic bicycle
+  ``[x, y, phi, v]``, whose speed term is ``|v|``;
+- K3, the Pacejka fan plus the augmented-Lagrangian penalty of the bounded
+  state constraints: after each stage's cost, for each state component i,
+  ``0.5 sigma (zeta - clip(zeta, d_lo, d_up))^2`` with
+  ``zeta = x_i^2 - off_i + lam / sigma`` (mpc_tpu/ops/fused_psi.py:243-249).
 
 Three implementations of the same function live here:
 
 - :func:`fan_value_and_grad_reference`, the plain PyTorch version
   (structure-of-arrays rollout, gradient by autograd of the lane sum). It is
-  the CPU path and the oracle the kernel is held to.
+  the CPU path and the oracle the kernels are held to.
 - :func:`_fan_adjoint_transcription`, the hand-written adjoint that
   ``csrc/fused_psi.cu`` implements, transcribed into batched torch so that
   every partial derivative is checked against autograd on the CPU. Used
   only by the tests.
-- :func:`fan_value_and_grad`, the wrapper: it checks its inputs, runs the
-  plain version for a CPU tensor, and launches the CUDA kernel for a CUDA
-  tensor (or raises). It counts its kernel launches in
-  ``fan_value_and_grad.launches``.
+- The wrappers :func:`fan_value_and_grad` (K1),
+  :func:`kin_fan_value_and_grad` (K2) and :func:`al_fan_value_and_grad`
+  (K3): each checks its inputs, runs the plain version for a CPU tensor, and
+  launches its CUDA kernel for a CUDA tensor (or raises). Each counts its
+  own kernel launches in its ``launches`` attribute.
 
 The reference's polynomial arctan exists only because the TPU compiler has
 no atan lowering; every version here uses the native ``atan2``/``atan``.
@@ -29,7 +40,7 @@ no atan lowering; every version here uses the native ``atan2``/``atan``.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -40,8 +51,9 @@ from mpc_tpu_torch.ops.road import wrap_to_pi
 #: limits of the kernel's per-thread buffers (csrc/fused_psi.cu MAX_N/MAX_SUB)
 KERNEL_MAX_HORIZON = 64
 KERNEL_MAX_SUBSTEPS = 8
-#: the centerline table must fit the default 48 KB of shared memory
-KERNEL_MAX_CL_ROWS = (48 * 1024 // 4 - len(KERNEL_PARAM_FIELDS)) // 6
+#: the kernel's shared memory (centerline table, parameters and, for K3,
+#: the constraint offsets and bounds) must fit the default 48 KB
+KERNEL_SMEM_FLOATS = 48 * 1024 // 4
 
 
 def make_cltab(centerline: torch.Tensor) -> torch.Tensor:
@@ -87,15 +99,29 @@ def _pacejka_deriv(x, d, delta, p):
     )
 
 
-def _rk4_substeps(x, d, delta, p, h, substeps):
+def _kinematic_deriv(x, d, delta, p):
+    """Kinematic bicycle ODE on (E,) component vectors
+    (mpc_tpu/ops/fused_psi.py:127-137)."""
+    px, py, phi, v = x
+    lf, lr = p.axis_front, p.axis_rear
+    beta = torch.atan2(lf * torch.tan(delta), lf + lr)
+    return (
+        v * torch.cos(phi + beta),
+        v * torch.sin(phi + beta),
+        v * torch.sin(beta) / lr,
+        p.acceleration * d - p.friction * v,
+    )
+
+
+def _rk4_substeps(deriv, x, d, delta, p, h, substeps):
     for _ in range(substeps):
-        k1 = _pacejka_deriv(x, d, delta, p)
+        k1 = deriv(x, d, delta, p)
         x2 = tuple(xi + 0.5 * h * ki for xi, ki in zip(x, k1))
-        k2 = _pacejka_deriv(x2, d, delta, p)
+        k2 = deriv(x2, d, delta, p)
         x3 = tuple(xi + 0.5 * h * ki for xi, ki in zip(x, k2))
-        k3 = _pacejka_deriv(x3, d, delta, p)
+        k3 = deriv(x3, d, delta, p)
         x4 = tuple(xi + h * ki for xi, ki in zip(x, k3))
-        k4 = _pacejka_deriv(x4, d, delta, p)
+        k4 = deriv(x4, d, delta, p)
         x = tuple(xi + (h / 6.0) * (a + 2 * b + 2 * c + e)
                   for xi, a, b, c, e in zip(x, k1, k2, k3, k4))
     return x
@@ -108,17 +134,24 @@ def _nearest(px, py, cltab):
     return torch.argmin(dx * dx + dy * dy, dim=1)
 
 
+def _speed(x):
+    """``sqrt(vx^2 + vy^2)`` for the Pacejka state, ``|v|`` for the
+    kinematic one (mpc_tpu/ops/fused_psi.py:191-194)."""
+    if len(x) >= 5:
+        return torch.sqrt(x[3] ** 2 + x[4] ** 2)
+    return torch.abs(x[3])
+
+
 def _stage_terms(x, pts):
     """cte, pos_error, heading_error and speed of a state against its
     selected points ``pts = (nx, ny, pvx, pvy, nxx, nxy)``."""
-    px, py, phi, vx, vy = x[:5]
+    px, py, phi = x[:3]
     nx, ny, pvx, pvy, nxx, nxy = pts
     cte = (px - pvx) * (ny - pvy) - (py - pvy) * (nx - pvx)
     desired = torch.atan2(nxy - ny, nxx - nx)
     heading_error = wrap_to_pi(desired - phi)
     pos_error = (px - nx) * (nxy - ny) - (py - ny) * (nxx - nx)
-    speed = torch.sqrt(vx ** 2 + vy ** 2)
-    return cte, pos_error, heading_error, speed
+    return cte, pos_error, heading_error, _speed(x)
 
 
 def _stage_cost(x, d, delta, pts, v_ref, c):
@@ -131,16 +164,36 @@ def _stage_cost(x, d, delta, pts, v_ref, c):
             + c[5] * d ** 2)
 
 
-def _fan_total(u, y0, cltab, pvec, n_horiz, substeps, h, v_ref, weights):
+def _al_residuals(x, k, al):
+    """Per state component i of stage k: ``(sigma_j, zeta_j - zhat_j)`` of
+    the constraint ``j = k * sd + i`` (mpc_tpu/ops/fused_psi.py:244-249)."""
+    lam, sigma, offs, d_lo, d_up = al
+    sd = len(x)
+    for i in range(sd):
+        j = k * sd + i
+        g = x[i] * x[i] - offs[i]
+        zeta = g + lam[:, j] / sigma[:, j]
+        zhat = torch.clamp(zeta, d_lo[j], d_up[j])
+        yield sigma[:, j], zeta - zhat
+
+
+def _fan_total(u, y0, cltab, pvec, n_horiz, substeps, h, v_ref, weights,
+               model, al):
+    deriv, _, sd = _MODELS[model]
     p = _Params(pvec)
-    x = tuple(y0[:, i] for i in range(6))
+    x = tuple(y0[:, i] for i in range(sd))
     tot = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
     for k in range(n_horiz):
         d, delta = u[:, 2 * k], u[:, 2 * k + 1]
-        x = _rk4_substeps(x, d, delta, p, h, substeps)
+        x = _rk4_substeps(deriv, x, d, delta, p, h, substeps)
         idx = _nearest(x[0], x[1], cltab)
         pts = cltab[idx].unbind(dim=1)
         tot = tot + _stage_cost(x, d, delta, pts, v_ref, weights)
+        if al is not None:
+            # the stage's six penalties after its cost, in the reference's
+            # order, so that the kernel can round as this sum does
+            for s, r in _al_residuals(x, k, al):
+                tot = tot + 0.5 * s * r ** 2
     return tot
 
 
@@ -148,20 +201,27 @@ def fan_value_and_grad_reference(u: torch.Tensor, y0: torch.Tensor,
                                  cltab: torch.Tensor, pvec: torch.Tensor,
                                  n_horiz: int, substeps: int, h: float,
                                  v_ref: float,
-                                 weights: Sequence[float]):
+                                 weights: Sequence[float],
+                                 model: str = "pacejka",
+                                 al: Optional[tuple] = None):
     """Plain PyTorch fan: ``(psi (E,), grad (E, 2N))``.
 
-    ``u`` (E, 2N), ``y0`` (E, 6), ``cltab`` (S-1, 6) from :func:`make_cltab`,
-    ``pvec`` (24,) from ``VehicleParams.to_kernel_vec``. The SoA analogue of
+    ``u`` (E, 2N), ``y0`` (E, sd) with sd = 6 for ``model="pacejka"`` and 4
+    for ``"simplified"``, ``cltab`` (S-1, 6) from :func:`make_cltab`,
+    ``pvec`` (24,) from ``VehicleParams.to_kernel_vec``. ``al = (lam (E, m),
+    sigma (E, m), offsets (sd,), d_lo (m,), d_up (m,))``, m = sd * N
+    stage-major, adds the augmented-Lagrangian penalty. The SoA analogue of
     ``_batched_total_cost`` + ``_eval_xla`` (mpc_tpu/ops/fused_psi.py:204-294);
     the gradient is autograd of the lane sum (lanes are independent), with
     the nearest-point selection held constant.
     """
     cltab, pvec, y0 = cltab.detach(), pvec.detach(), y0.detach()
+    if al is not None:
+        al = tuple(a.detach() for a in al)
     with torch.enable_grad():
         u_ = u.detach().requires_grad_(True)
         psi = _fan_total(u_, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
-                         weights)
+                         weights, model, al)
         (grad,) = torch.autograd.grad(psi.sum(), u_)
     return psi.detach(), grad
 
@@ -226,11 +286,41 @@ def _pacejka_vjp(x, d, delta, p, mu):
     return (zero, zero, g_phi, g_vx, g_vy, g_w), g_d, g_delta
 
 
+def _kinematic_vjp(x, d, delta, p, mu):
+    """Cotangent ``mu`` (4 components) pulled back through the kinematic
+    ODE. ``beta = atan2(lf tan(delta), lf + lr)`` with lf + lr > 0, so
+    ``d beta / d delta = lf (lf + lr) sec^2(delta)
+    / ((lf + lr)^2 + lf^2 tan^2(delta))``, with sec^2 = 1 + tan^2."""
+    px, py, phi, v = x
+    lf, lr = p.axis_front, p.axis_rear
+    ll = lf + lr
+    t = torch.tan(delta)
+    ty = lf * t
+    beta = torch.atan2(ty, ll)
+    c_pb, s_pb = torch.cos(phi + beta), torch.sin(phi + beta)
+    c_b, s_b = torch.cos(beta), torch.sin(beta)
+    # f0 = v cos(phi + b) ; f1 = v sin(phi + b) ; f2 = v sin(b) / lr
+    # f3 = acc d - friction v
+    g_pb = -mu[0] * v * s_pb + mu[1] * v * c_pb
+    g_v = mu[0] * c_pb + mu[1] * s_pb + mu[2] * s_b / lr \
+        - mu[3] * p.friction
+    g_beta = g_pb + mu[2] * v * c_b / lr
+    g_d = mu[3] * p.acceleration
+    g_delta = g_beta * (ll / (ll * ll + ty * ty)) * lf * (1.0 + t * t)
+    zero = torch.zeros_like(px)
+    return (zero, zero, g_pb, g_v), g_d, g_delta
+
+
+#: model -> (ODE, its vector-Jacobian product, state dimension)
+_MODELS = {"pacejka": (_pacejka_deriv, _pacejka_vjp, 6),
+           "simplified": (_kinematic_deriv, _kinematic_vjp, 4)}
+
+
 def _stage_cost_vjp(x, d, delta, pts, v_ref, c):
     """Gradient of one stage cost w.r.t. the state after the stage and the
     stage's inputs, with the selected points held constant. The wrap to
-    [-pi, pi) has derivative 1."""
-    px, py, phi, vx, vy, w = x
+    [-pi, pi) has derivative 1; ``|v|`` has derivative sign(v), 0 at 0."""
+    px, py = x[0], x[1]
     nx, ny, pvx, pvy, nxx, nxy = pts
     cte, pos_error, heading_error, speed = _stage_terms(x, pts)
     c_cte = 2.0 * c[1] * cte
@@ -238,76 +328,87 @@ def _stage_cost_vjp(x, d, delta, pts, v_ref, c):
     g_px = c_cte * (ny - pvy) + c_pe * (nxy - ny)
     g_py = -c_cte * (nx - pvx) - c_pe * (nxx - nx)
     g_phi = -2.0 * c[3] * heading_error
-    gs = 2.0 * c[0] * (speed - v_ref) / speed
     zero = torch.zeros_like(px)
-    return ((g_px, g_py, g_phi, gs * vx, gs * vy, zero),
-            2.0 * c[5] * d, 2.0 * c[4] * delta)
+    if len(x) >= 5:
+        gs = 2.0 * c[0] * (speed - v_ref) / speed
+        g_speed = (gs * x[3], gs * x[4], zero)
+    else:
+        g_speed = (2.0 * c[0] * (speed - v_ref) * torch.sign(x[3]),)
+    return ((g_px, g_py, g_phi) + g_speed, 2.0 * c[5] * d, 2.0 * c[4] * delta)
 
 
 def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
-                               v_ref, weights):
+                               v_ref, weights, model="pacejka", al=None):
     """The kernel's algorithm in batched torch, no autograd.
 
     Forward sweep: store each stage's start state and argmin index, sum the
-    stage costs. Reverse sweep, stage N-1 down to 0: recompute the stage's
-    RK4 substeps from its start state keeping the four evaluation points of
-    each substep; add the stage cost's state gradient to the adjoint; pull
-    the adjoint back through the substeps in reverse, accumulating the
-    gradients w.r.t. ``d_k`` and ``delta_k``.
+    stage costs (and the AL penalties). Reverse sweep, stage N-1 down to 0:
+    recompute the stage's RK4 substeps from its start state keeping the four
+    evaluation points of each substep; add the stage cost's state gradient
+    and the AL term's ``sigma (zeta - zhat) 2 x_i`` to the adjoint; pull the
+    adjoint back through the substeps in reverse, accumulating the gradients
+    w.r.t. ``d_k`` and ``delta_k``.
     """
+    deriv, vjp, sd = _MODELS[model]
     p = _Params(pvec)
     hh, h6 = 0.5 * h, h / 6.0
-    x = tuple(y0[:, i] for i in range(6))
+    x = tuple(y0[:, i] for i in range(sd))
     starts, idxs = [], []
     psi = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
     for k in range(n_horiz):
         d, delta = u[:, 2 * k], u[:, 2 * k + 1]
         starts.append(x)
-        x = _rk4_substeps(x, d, delta, p, h, substeps)
+        x = _rk4_substeps(deriv, x, d, delta, p, h, substeps)
         idx = _nearest(x[0], x[1], cltab)
         idxs.append(idx)
         psi = psi + _stage_cost(x, d, delta, cltab[idx].unbind(dim=1),
                                 v_ref, weights)
+        if al is not None:
+            for s, r in _al_residuals(x, k, al):
+                psi = psi + 0.5 * s * r ** 2
 
     grad = torch.zeros_like(u)
-    lam = tuple(torch.zeros_like(psi) for _ in range(6))
+    adj = tuple(torch.zeros_like(psi) for _ in range(sd))
     for k in reversed(range(n_horiz)):
         d, delta = u[:, 2 * k], u[:, 2 * k + 1]
         xs = starts[k]
         points = []
         for _ in range(substeps):
-            k1 = _pacejka_deriv(xs, d, delta, p)
+            k1 = deriv(xs, d, delta, p)
             x2 = tuple(a + hh * b for a, b in zip(xs, k1))
-            k2 = _pacejka_deriv(x2, d, delta, p)
+            k2 = deriv(x2, d, delta, p)
             x3 = tuple(a + hh * b for a, b in zip(xs, k2))
-            k3 = _pacejka_deriv(x3, d, delta, p)
+            k3 = deriv(x3, d, delta, p)
             x4 = tuple(a + h * b for a, b in zip(xs, k3))
-            k4 = _pacejka_deriv(x4, d, delta, p)
+            k4 = deriv(x4, d, delta, p)
             points.append((xs, x2, x3, x4))
             xs = tuple(a + h6 * (b1 + 2 * b2 + 2 * b3 + b4)
                        for a, b1, b2, b3, b4 in zip(xs, k1, k2, k3, k4))
         g_x, g_d, g_delta = _stage_cost_vjp(
             xs, d, delta, cltab[idxs[k]].unbind(dim=1), v_ref, weights)
-        lam = tuple(a + b for a, b in zip(lam, g_x))
+        adj = tuple(a + b for a, b in zip(adj, g_x))
+        if al is not None:
+            adj = tuple(a + s * r * (2.0 * xi) for a, xi, (s, r)
+                        in zip(adj, xs, _al_residuals(xs, k, al)))
         for xa, x2, x3, x4 in reversed(points):
-            lk1 = tuple(h6 * a for a in lam)
+            lk1 = tuple(h6 * a for a in adj)
             lk2 = tuple(2.0 * a for a in lk1)
             lk3 = lk2
-            lx = lam
-            gx, gd_, gdl = _pacejka_vjp(x4, d, delta, p, lk1)   # k4: weight h/6
+            lx = adj
+            gx, gd_, gdl = vjp(x4, d, delta, p, lk1)   # k4: weight h/6
             lx = tuple(a + b for a, b in zip(lx, gx))
             lk3 = tuple(a + h * b for a, b in zip(lk3, gx))
             g_d, g_delta = g_d + gd_, g_delta + gdl
-            gx, gd_, gdl = _pacejka_vjp(x3, d, delta, p, lk3)
+            gx, gd_, gdl = vjp(x3, d, delta, p, lk3)
             lx = tuple(a + b for a, b in zip(lx, gx))
             lk2 = tuple(a + hh * b for a, b in zip(lk2, gx))
             g_d, g_delta = g_d + gd_, g_delta + gdl
-            gx, gd_, gdl = _pacejka_vjp(x2, d, delta, p, lk2)
+            gx, gd_, gdl = vjp(x2, d, delta, p, lk2)
             lx = tuple(a + b for a, b in zip(lx, gx))
             lk1 = tuple(a + hh * b for a, b in zip(lk1, gx))
             g_d, g_delta = g_d + gd_, g_delta + gdl
-            gx, gd_, gdl = _pacejka_vjp(xa, d, delta, p, lk1)
-            lam = tuple(a + b for a, b in zip(lx, gx))
+            gx, gd_, gdl = vjp(xa, d, delta, p, lk1)
+            adj = tuple(a + b for a, b in zip(lx, gx))
             g_d, g_delta = g_d + gd_, g_delta + gdl
         grad[:, 2 * k] = g_d
         grad[:, 2 * k + 1] = g_delta
@@ -315,64 +416,68 @@ def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _check(name, t, shape, device):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"fan_value_and_grad: {name} must be a tensor")
+        raise TypeError(f"fan: {name} must be a tensor")
     if t.dtype != torch.float32:
-        raise TypeError(f"fan_value_and_grad: {name} must be float32, "
-                        f"got {t.dtype}")
+        raise TypeError(f"fan: {name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fan_value_and_grad: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"fan: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
     if t.device != device:
-        raise ValueError(f"fan_value_and_grad: {name} is on {t.device}, "
-                         f"u is on {device}")
+        raise ValueError(f"fan: {name} is on {t.device}, u is on {device}")
     if not t.is_contiguous():
-        raise ValueError(f"fan_value_and_grad: {name} must be contiguous")
+        raise ValueError(f"fan: {name} must be contiguous")
 
 
-def fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor, cltab: torch.Tensor,
-                       pvec: torch.Tensor, n_horiz: int, substeps: int,
-                       h: float, v_ref: float,
-                       weights: Sequence[float] = DEFAULT_VEHICLE_WEIGHTS):
-    """Fan value and gradient ``(psi (E,), grad (E, 2N))``.
-
-    On a CPU tensor this is :func:`fan_value_and_grad_reference`. On a CUDA
-    tensor it launches the hand-written kernel (``csrc/fused_psi.cu``) or
-    raises: there is no fallback.
-    """
+def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
+         weights, al=None):
+    """Check the inputs, then run the plain version (CPU tensor) or launch
+    the kernel of ``model`` and ``al`` (CUDA tensor), counting the launch on
+    ``wrapper.launches``."""
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
-        raise ValueError("fan_value_and_grad: u must be a 2-D tensor (E, 2N)")
+        raise ValueError("fan: u must be a 2-D tensor (E, 2N)")
     E = u.shape[0]
     dev = u.device
+    sd = _MODELS[model][2]
     if len(weights) != 6:
-        raise ValueError("fan_value_and_grad: weights must have 6 entries")
+        raise ValueError("fan: weights must have 6 entries")
     _check("u", u, (E, 2 * n_horiz), dev)
-    _check("y0", y0, (E, 6), dev)
+    _check("y0", y0, (E, sd), dev)
     if cltab.dim() != 2:
-        raise ValueError("fan_value_and_grad: cltab must be (S-1, 6)")
+        raise ValueError("fan: cltab must be (S-1, 6)")
     _check("cltab", cltab, (cltab.shape[0], 6), dev)
     _check("pvec", pvec, (len(KERNEL_PARAM_FIELDS),), dev)
     if cltab.shape[0] < 1:
-        raise ValueError("fan_value_and_grad: cltab needs at least one row")
+        raise ValueError("fan: cltab needs at least one row")
+    m = 0
+    if al is not None:
+        m = sd * n_horiz
+        for name, t, shape in zip(("lam", "sigma", "offsets", "d_lo", "d_up"),
+                                  al, ((E, m), (E, m), (sd,), (m,), (m,))):
+            _check(name, t, shape, dev)
 
     if dev.type == "cpu":
         return fan_value_and_grad_reference(u, y0, cltab, pvec, n_horiz,
-                                            substeps, h, v_ref, weights)
+                                            substeps, h, v_ref, weights,
+                                            model, al)
     if dev.type != "cuda":
-        raise RuntimeError(f"fan_value_and_grad: no kernel for {dev.type}")
+        raise RuntimeError(f"fan: no kernel for {dev.type}")
     if not 1 <= n_horiz <= KERNEL_MAX_HORIZON:
-        raise ValueError(f"fan_value_and_grad: kernel takes 1 <= N <= "
+        raise ValueError(f"fan: the kernel takes 1 <= N <= "
                          f"{KERNEL_MAX_HORIZON}, got {n_horiz}")
     if not 1 <= substeps <= KERNEL_MAX_SUBSTEPS:
-        raise ValueError(f"fan_value_and_grad: kernel takes 1 <= substeps <= "
+        raise ValueError(f"fan: the kernel takes 1 <= substeps <= "
                          f"{KERNEL_MAX_SUBSTEPS}, got {substeps}")
-    if cltab.shape[0] > KERNEL_MAX_CL_ROWS:
-        raise ValueError(f"fan_value_and_grad: kernel takes at most "
-                         f"{KERNEL_MAX_CL_ROWS} centerline rows")
+    al_floats = sd + 2 * m if al is not None else 0
+    if 6 * cltab.shape[0] + len(KERNEL_PARAM_FIELDS) + al_floats \
+            > KERNEL_SMEM_FLOATS:
+        raise ValueError("fan: the centerline table and the constraint "
+                         "bounds do not fit the kernel's 48 KB of shared "
+                         "memory")
 
     psi = torch.empty((E,), dtype=torch.float32, device=dev)
     grad = torch.empty((E, 2 * n_horiz), dtype=torch.float32, device=dev)
@@ -380,27 +485,77 @@ def fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor, cltab: torch.Tensor,
         return psi, grad
     from mpc_tpu_torch.kernels.build import load_fused_psi
     lib = load_fused_psi()
+    common = (E, n_horiz, cltab.shape[0], substeps, float(h), float(v_ref),
+              *(float(w) for w in weights))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mpc_fused_psi_fan(
-            u.data_ptr(), y0.data_ptr(), cltab.data_ptr(), pvec.data_ptr(),
-            psi.data_ptr(), grad.data_ptr(),
-            E, n_horiz, cltab.shape[0], substeps,
-            float(h), float(v_ref), *(float(w) for w in weights),
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if al is not None:
+            rc = lib.mpc_fused_psi_fan_al(
+                u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
+                pvec.data_ptr(), *(t.data_ptr() for t in al),
+                psi.data_ptr(), grad.data_ptr(), *common, stream)
+        else:
+            entry = lib.mpc_fused_psi_fan if model == "pacejka" \
+                else lib.mpc_fused_psi_fan_kin
+            rc = entry(u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
+                       pvec.data_ptr(), psi.data_ptr(), grad.data_ptr(),
+                       *common, stream)
     if rc != 0:
-        raise RuntimeError(f"fan_value_and_grad: CUDA kernel launch failed "
-                           f"with cudaError {rc}")
-    fan_value_and_grad.launches += 1
+        raise RuntimeError(f"fan: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+    wrapper.launches += 1
     return psi, grad
 
 
-#: kernel launches since the count was last reset
+def fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor, cltab: torch.Tensor,
+                       pvec: torch.Tensor, n_horiz: int, substeps: int,
+                       h: float, v_ref: float,
+                       weights: Sequence[float] = DEFAULT_VEHICLE_WEIGHTS):
+    """K1, the Pacejka fan: ``(psi (E,), grad (E, 2N))`` for ``y0`` (E, 6).
+
+    On a CPU tensor this is :func:`fan_value_and_grad_reference`. On a CUDA
+    tensor it launches the hand-written kernel (``csrc/fused_psi.cu``) or
+    raises: there is no fallback.
+    """
+    return _fan(fan_value_and_grad, "pacejka", u, y0, cltab, pvec, n_horiz,
+                substeps, h, v_ref, weights)
+
+
+def kin_fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor,
+                           cltab: torch.Tensor, pvec: torch.Tensor,
+                           n_horiz: int, substeps: int, h: float,
+                           v_ref: float,
+                           weights: Sequence[float] = DEFAULT_VEHICLE_WEIGHTS):
+    """K2, the kinematic-bicycle fan: as :func:`fan_value_and_grad` with
+    ``y0`` (E, 4) ``[x, y, phi, v]``."""
+    return _fan(kin_fan_value_and_grad, "simplified", u, y0, cltab, pvec,
+                n_horiz, substeps, h, v_ref, weights)
+
+
+def al_fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor,
+                          cltab: torch.Tensor, pvec: torch.Tensor,
+                          lam: torch.Tensor, sigma: torch.Tensor,
+                          offsets: torch.Tensor, d_lo: torch.Tensor,
+                          d_up: torch.Tensor, n_horiz: int, substeps: int,
+                          h: float, v_ref: float,
+                          weights: Sequence[float] = DEFAULT_VEHICLE_WEIGHTS):
+    """K3, the Pacejka fan plus the augmented-Lagrangian penalty of the
+    state constraints ``x_i^2 - offsets_i in [d_lo, d_up]``: ``lam``,
+    ``sigma`` (E, 6N) per lane, ``offsets`` (6,), ``d_lo``, ``d_up`` (6N,),
+    stage-major."""
+    return _fan(al_fan_value_and_grad, "pacejka", u, y0, cltab, pvec,
+                n_horiz, substeps, h, v_ref, weights,
+                al=(lam, sigma, offsets, d_lo, d_up))
+
+
+#: kernel launches since each count was last reset
 fan_value_and_grad.launches = 0
+kin_fan_value_and_grad.launches = 0
+al_fan_value_and_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# OCP-level builder
+# OCP-level builders
 # ---------------------------------------------------------------------------
 
 def fan_params(centerline: torch.Tensor, p: VehicleParams):
@@ -412,29 +567,60 @@ def make_vehicle_cost_multi(n_horiz: int, ts: float = 0.05,
                             substeps: int = 4, v_ref: float = 1.0,
                             weights=DEFAULT_VEHICLE_WEIGHTS,
                             model: str = "pacejka") -> Callable:
-    """Build ``cost_multi(cands (B, K, n), y0 (B, 6), cltab, pvec)
+    """Build ``cost_multi(cands (B, K, n), y0 (B, sd), cltab, pvec)
     -> (psi (B, K), grad (B, K, n))``: every (scenario x candidate) pair is
-    one evaluation lane of :func:`fan_value_and_grad` (E = B*K).
+    one evaluation lane of the model's fan (E = B*K): K1 for
+    ``model="pacejka"``, K2 for ``"simplified"``.
 
     ``cltab, pvec = fan_params(centerline, p)``; compute them once per solve.
     """
-    if model == "simplified":
-        raise NotImplementedError(
-            "mpc_tpu_torch: the fused fan for the kinematic model (kernel K2) "
-            "is not ported yet; see ROADMAP.md, slice 2")
-    if model != "pacejka":
+    if model not in _MODELS:
         raise ValueError(f"unknown model {model!r}")
     h = ts / substeps
     weights = tuple(float(w) for w in weights)
 
     def cost_multi(cands, y0, cltab, pvec):
+        fan = fan_value_and_grad if model == "pacejka" \
+            else kin_fan_value_and_grad
         B, K, n = cands.shape
         y0e = y0.repeat_interleave(K, dim=0).contiguous()
-        psi, grad = fan_value_and_grad(cands.reshape(B * K, n).contiguous(),
-                                       y0e, cltab, pvec, n_horiz, substeps,
-                                       h, v_ref, weights)
+        psi, grad = fan(cands.reshape(B * K, n).contiguous(), y0e, cltab,
+                        pvec, n_horiz, substeps, h, v_ref, weights)
         return psi.reshape(B, K), grad.reshape(B, K, n)
 
     return cost_multi
 
 
+def make_vehicle_al_multi(n_horiz: int, offsets, d_lo, d_up,
+                          ts: float = 0.05, substeps: int = 4,
+                          v_ref: float = 1.0,
+                          weights=DEFAULT_VEHICLE_WEIGHTS,
+                          device=None) -> Callable:
+    """Build ``al_multi(cands (B, K, n), y0 (B, 6), cltab, pvec, lam (B, m),
+    sigma (B, m)) -> (psi (B, K), grad (B, K, n))`` for the state-constrained
+    Pacejka OCP: each lane's ``lam`` and ``sigma`` are repeated for its K
+    candidates (mpc_tpu/ops/fused_psi.py:471-544), and every pair is one
+    evaluation lane of K3. ``offsets`` (6,), ``d_lo`` and ``d_up`` (6N,) are
+    fixed when the evaluator is built, as in the reference."""
+    h = ts / substeps
+    weights = tuple(float(w) for w in weights)
+
+    def const(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=device).contiguous()
+
+    consts = (const(offsets), const(d_lo), const(d_up))
+
+    def al_multi(cands, y0, cltab, pvec, lam, sigma):
+        B, K, n = cands.shape
+
+        def per_lane(a):                    # (B, d) -> (B*K, d)
+            return a.repeat_interleave(K, dim=0).contiguous()
+
+        psi, grad = al_fan_value_and_grad(
+            cands.reshape(B * K, n).contiguous(), per_lane(y0), cltab, pvec,
+            per_lane(lam), per_lane(sigma), *consts, n_horiz, substeps, h,
+            v_ref, weights)
+        return psi.reshape(B, K), grad.reshape(B, K, n)
+
+    return al_multi

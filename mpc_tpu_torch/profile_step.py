@@ -1,11 +1,13 @@
 """Where a closed-loop step's time goes on the card: device-busy time, the
 fan kernel's share of it, device kernels per step, and the device's idle
-share. Same controller, road and initial states as ``mpc_tpu_torch.bench``.
+share. Same controllers, roads and initial states as ``mpc_tpu_torch.bench``.
 
-    python -m mpc_tpu_torch.profile_step
+    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40]
 
-For batch 1024 and batch 1: 5 warm-up steps, then 3 steps run twice from the
-same state. The first time they are timed on the host clock, with a
+For the cell's batch (and, for the headline, batch 1): the cell's warm-up
+steps, then 3 steps (1 for ss_n40, whose step runs some 1,500 device kernels
+per PANOC iteration over hundreds of iterations) run twice from the same
+state. The first time they are timed on the host clock, with a
 synchronise after each step and no profiler. The second time they run under
 ``torch.profiler``. The steps are deterministic, so both runs do the same
 work; the script checks that their iteration counts agree. So the idle share,
@@ -21,14 +23,15 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mpc_tpu_torch.bench import N_WARMUP, ClosedLoop, gpu_info
+from mpc_tpu_torch.bench import CELLS, ClosedLoop, gpu_info
 
-N_PROFILED = 3
+N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1}
 FAN_KERNEL = "fused_psi_fan_kernel"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,10 +43,10 @@ def _clone(ys, carry):
 
 
 def _run_steps(loop, ys, carry):
-    """N_PROFILED steps; per step the wall time (s) and the slowest lane's
-    iteration count."""
+    """The cell's profiled steps; per step the wall time (s) and the slowest
+    lane's iteration count."""
     walls, iters = [], []
-    for _ in range(N_PROFILED):
+    for _ in range(N_PROFILED[loop.cell.name]):
         t0 = time.perf_counter()
         ys, carry, res = loop.step(ys, carry)
         iters.append(int(res.inner_iterations.max()))
@@ -72,23 +75,26 @@ def _union_us(intervals):
 @torch.no_grad()
 def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     from mpc_tpu_torch.ops import fused_psi as fp
+    wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
+                fp.al_fan_value_and_grad)
     ys, carry = loop.start(batch)
-    for _ in range(N_WARMUP):
+    for _ in range(loop.cell.n_warmup):
         ys, carry, _ = loop.step(ys, carry)
     torch.cuda.synchronize()
 
     walls, iters = _run_steps(loop, *_clone(ys, carry))
-    launches0 = fp.fan_value_and_grad.launches
+    launches0 = sum(w.launches for w in wrappers)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_walls, prof_iters = _run_steps(loop, *_clone(ys, carry))
-    launches = fp.fan_value_and_grad.launches - launches0
+    launches = sum(w.launches for w in wrappers) - launches0
     if prof_iters != iters:
         raise RuntimeError(f"the profiled steps did other work than the "
                            f"timed ones: iterations {prof_iters} vs {iters}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, f"trace_batch{batch}.json")
+    path = os.path.join(OUT_DIR,
+                        f"trace_{loop.cell.name}_batch{batch}.json")
     prof.export_chrome_trace(path)
     dev = _device_intervals(path)
     kernels = [iv for iv in dev if iv[2] == "kernel"]
@@ -101,7 +107,8 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     fan_ms = sum(b - a for a, b, _, _ in fan) / 1e3
     wall_ms = sum(walls) * 1e3
     return {
-        "batch": batch, "steps": N_PROFILED, "slowest_lane_iters": iters,
+        "cell": loop.cell.name, "batch": batch, "steps": len(iters),
+        "slowest_lane_iters": iters,
         "wall_ms": wall_ms, "wall_ms_under_profiler": sum(prof_walls) * 1e3,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         "fan_kernel_ms": fan_ms, "fan_share_of_busy": fan_ms / busy_ms,
@@ -113,10 +120,17 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     }
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    name = argv[0] if argv else "headline"
+    if name not in CELLS or len(argv) > 1:
+        raise SystemExit(f"usage: python -m mpc_tpu_torch.profile_step "
+                         f"[{'|'.join(CELLS)}]")
     info = gpu_info()
-    loop = ClosedLoop()
-    for batch in (1024, 1):
+    loop = ClosedLoop(CELLS[name])
+    batches = (loop.cell.batch, 1) if loop.cell.batch1_latency \
+        else (loop.cell.batch,)
+    for batch in batches:
         r = profile_batch(loop, batch)
         r["device"] = info["name"]
         r["power_limit"] = info["power_limit"]

@@ -42,14 +42,22 @@ def project(x: torch.Tensor, box: Box) -> torch.Tensor:
     return torch.clamp(x, min=box.lower, max=box.upper)
 
 
+def project_difference(x: torch.Tensor, box: Box) -> torch.Tensor:
+    """``x - Pi_box(x)``: signed distance components to the box."""
+    return x - project(x, box)
+
+
 @dataclasses.dataclass(frozen=True)
 class Problem:
     """A box-constrained NLP with general constraints, lane-batched.
 
     ``cost_multi(cands (B, K, n), param) -> (psi (B, K), grad (B, K, n))``,
     when present, evaluates the PANOC candidate fan in one call (the fused
-    kernel path, ops/fused_psi.py). ``param_prep(param) -> param`` derives
-    solve-constant data from the parameters once per solve.
+    kernel path, ops/fused_psi.py). ``al_multi(cands (B, K, n), param,
+    lam (B, m), sigma (B, m)) -> (psi (B, K), grad (B, K, n))`` is its
+    augmented-Lagrangian variant for the general-constraint path
+    (mpc_tpu/solver/problem.py:75-77). ``param_prep(param) -> param``
+    derives solve-constant data from the parameters once per solve.
     """
     cost: Callable[[torch.Tensor, Any], torch.Tensor]
     constraints: Optional[Callable[[torch.Tensor, Any], torch.Tensor]]
@@ -58,6 +66,7 @@ class Problem:
     n: int
     m: int
     cost_multi: Optional[Callable] = None
+    al_multi: Optional[Callable] = None
     param_prep: Optional[Callable] = None
 
 

@@ -1,4 +1,6 @@
-"""On-card tests of the port's CUDA kernel (mpc_tpu_torch/csrc/fused_psi.cu).
+"""On-card tests of the port's CUDA kernels (mpc_tpu_torch/csrc/fused_psi.cu:
+K1, the Pacejka fan; K2, the kinematic fan; K3, the augmented-Lagrangian
+fan).
 
 They need an NVIDIA GPU and nvcc and skip without them. This module imports
 neither jax nor the JAX package, so it also runs where jax is not installed:
@@ -11,9 +13,13 @@ import pytest
 import torch
 
 from mpc_tpu_torch.config import AlmConfig, PanocConfig
-from mpc_tpu_torch.control.mpc import build_vehicle_controller
+from mpc_tpu_torch.control.mpc import (STATE_CONSTRAINT_OFFSETS,
+                                       build_vehicle_controller)
+from mpc_tpu_torch.kernels.check import compare_fan
 from mpc_tpu_torch.models.params import VehicleParams
 from mpc_tpu_torch.ops import fused_psi as fp
+from mpc_tpu_torch.ops.bezier import (bezier_centerline,
+                                      lane_change_control_points)
 from mpc_tpu_torch.ops.road import circle_centerline, straight_centerline
 
 PSI_TOL = dict(rtol=2e-5, atol=1e-6)
@@ -140,3 +146,181 @@ def test_controller_step_on_card_matches_cpu(cuda):
                                r_cpu.result.psi.numpy(), rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(r_gpu.u0.cpu().numpy(), r_cpu.u0.numpy(),
                                rtol=0, atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# K2 (kinematic bicycle) and K3 (augmented-Lagrangian fan)
+# ---------------------------------------------------------------------------
+
+def _variant_inputs(seed, E, n_horiz, sd, device, out_of_box=False):
+    """Fan inputs for a state of ``sd`` components. In the box: d in [0, 1],
+    |delta| <= 0.32, speed in [0.2, 1]. Out of it: |d| <= 1.5, |delta| <= 1.4
+    (where tan(delta) is large), speed in [0, 1] with every eighth lane at
+    standstill."""
+    rng = np.random.default_rng(seed)
+    u = np.empty((E, 2 * n_horiz), np.float32)
+    if out_of_box:
+        u[:, 0::2] = rng.uniform(-1.5, 1.5, (E, n_horiz))
+        u[:, 1::2] = rng.uniform(-1.4, 1.4, (E, n_horiz))
+    else:
+        u[:, 0::2] = rng.uniform(0.0, 1.0, (E, n_horiz))
+        u[:, 1::2] = rng.uniform(-0.32, 0.32, (E, n_horiz))
+    y0 = np.zeros((E, sd), np.float32)
+    y0[:, 0] = rng.uniform(-0.1, 0.5, E)
+    y0[:, 1] = rng.uniform(-0.1, 0.1, E)
+    y0[:, 2] = rng.uniform(-0.3, 0.3, E)
+    y0[:, 3] = rng.uniform(0.0 if out_of_box else 0.2, 1.0, E)
+    if out_of_box:
+        y0[::8, 3] = 0.0
+    return (torch.as_tensor(u, device=device),
+            torch.as_tensor(y0, device=device))
+
+
+def _al_operands(seed, E, n_horiz, device, log_sigma):
+    """Multipliers in [0, 2] and penalties log-uniform over
+    ``10**log_sigma``, with the bounded state constraints x^2 - off <= 0."""
+    rng = np.random.default_rng(seed + 1000)
+    m = 6 * n_horiz
+    lam = rng.uniform(0.0, 2.0, (E, m)).astype(np.float32)
+    sigma = (10.0 ** rng.uniform(*log_sigma, (E, m))).astype(np.float32)
+    as_t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    return (as_t(lam), as_t(sigma),
+            torch.tensor(STATE_CONSTRAINT_OFFSETS, device=device),
+            torch.full((m,), -float("inf"), device=device),
+            torch.zeros((m,), device=device))
+
+
+def _lane_change_road(device):
+    return bezier_centerline(
+        lane_change_control_points(5.0, device=device).control_points * 0.01,
+        size=100)
+
+
+def _check_variant(tag, wrapper, psi_grad, u, y0, cltab, pvec, args, model,
+                   al, excused_share):
+    before = wrapper.launches
+    psi, grad = psi_grad()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    r = compare_fan(psi, grad, u, y0, cltab, pvec, *args, PSI_TOL, GRAD_TOL,
+                    model=model, al=al)
+    print(f"{tag}: {r}")
+    assert r["failed"] == 0, r
+    assert r["excused"] <= excused_share * u.shape[0], r
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("road,E,out_of_box", [
+    ("straight", 1, False), ("circle", 37, False), ("straight", 5120, False),
+    ("circle", 5120, True)])
+def test_kin_kernel_matches_plain_version(cuda, road, E, out_of_box):
+    n_horiz = 20
+    cl = straight_centerline(100, device=cuda) if road == "straight" \
+        else circle_centerline(100, device=cuda)
+    u, y0 = _variant_inputs(E, E, n_horiz, 4, cuda, out_of_box)
+    cltab, pvec = fp.fan_params(cl, VehicleParams())
+    args = (n_horiz, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
+    _check_variant(f"K2 {road} E={E} out_of_box={out_of_box}",
+                   fp.kin_fan_value_and_grad,
+                   lambda: fp.kin_fan_value_and_grad(u, y0, cltab, pvec, *args),
+                   u, y0, cltab, pvec, args, "simplified", None,
+                   0.01 if out_of_box else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,log_sigma,out_of_box", [
+    (1, (-1, 3), False), (37, (-1, 3), False), (512, (3, 9), False),
+    (1280, (-1, 3), True)])
+def test_al_kernel_matches_plain_version(cuda, E, log_sigma, out_of_box):
+    n_horiz = 40
+    u, y0 = _variant_inputs(E, E, n_horiz, 6, cuda, out_of_box)
+    al = _al_operands(E, E, n_horiz, cuda, log_sigma)
+    cltab, pvec = fp.fan_params(_lane_change_road(cuda), VehicleParams())
+    args = (n_horiz, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
+    _check_variant(f"K3 E={E} sigma 1e{log_sigma} out_of_box={out_of_box}",
+                   fp.al_fan_value_and_grad,
+                   lambda: fp.al_fan_value_and_grad(u, y0, cltab, pvec, *al,
+                                                    *args),
+                   u, y0, cltab, pvec, args, "pacejka", al,
+                   0.01 if out_of_box or E > 100 else 0.0)
+
+
+@pytest.mark.cuda
+def test_variant_wrappers_raise_instead_of_falling_back(cuda):
+    # On a CUDA tensor the K2 and K3 wrappers launch their kernel or raise;
+    # they never run the plain version.
+    cltab, pvec = fp.fan_params(straight_centerline(100, device=cuda),
+                                VehicleParams())
+    u, y4 = _variant_inputs(0, 4, 70, 4, cuda)
+    _, y6 = _variant_inputs(0, 4, 70, 6, cuda)
+    al = _al_operands(0, 4, 70, cuda, (0, 1))
+    kin0, al0 = fp.kin_fan_value_and_grad.launches, \
+        fp.al_fan_value_and_grad.launches
+    with pytest.raises(ValueError, match="N <="):
+        fp.kin_fan_value_and_grad(u, y4, cltab, pvec, 70, 4, 0.0125, 1.0)
+    with pytest.raises(ValueError, match="N <="):
+        fp.al_fan_value_and_grad(u, y6, cltab, pvec, *al, 70, 4, 0.0125, 1.0)
+    with pytest.raises(ValueError, match="is on"):
+        fp.kin_fan_value_and_grad(u, y4.cpu(), cltab, pvec, 70, 4, 0.0125,
+                                  1.0)
+    # the bounds of K3 and a long road overflow the kernel's shared memory
+    n = 40
+    u, y6 = _variant_inputs(0, 4, n, 6, cuda)
+    al = _al_operands(0, 4, n, cuda, (0, 1))
+    long_tab, _ = fp.fan_params(straight_centerline(2000, device=cuda),
+                                VehicleParams())
+    with pytest.raises(ValueError, match="shared"):
+        fp.al_fan_value_and_grad(u, y6, long_tab, pvec, *al, n, 4, 0.0125,
+                                 1.0)
+    assert fp.kin_fan_value_and_grad.launches == kin0
+    assert fp.al_fan_value_and_grad.launches == al0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["config1", "constrained"])
+def test_variant_controller_step_on_card_matches_cpu(cuda, variant):
+    # One cold MPC step of the kinematic controller (K2) or of the
+    # state-constrained controller (K3, ALM general path) through the kernel
+    # on the card, against the same step through the plain version on the
+    # CPU.
+    B = 8
+    rng = np.random.default_rng(5)
+    if variant == "config1":
+        n_horiz, wrapper = 20, fp.kin_fan_value_and_grad
+        kw = dict(model="simplified", alm_cfg=AlmConfig(eps=1e-4),
+                  panoc_cfg=PanocConfig(lbfgs_memory=n_horiz, max_iter=200))
+        y0 = np.zeros((B, 4), np.float32)
+        y0[:, 1] = rng.uniform(-0.05, 0.05, B)
+        y0[:, 3] = rng.uniform(0.2, 1.0, B)
+    else:
+        n_horiz, wrapper = 8, fp.al_fan_value_and_grad
+        kw = dict(bound_state_constraints=True,
+                  alm_cfg=AlmConfig(eps=1e-3, delta=1e-3, max_iter=8,
+                                    eps_0=1e-2, sigma_0=1e3),
+                  panoc_cfg=PanocConfig(lbfgs_memory=n_horiz, max_iter=150))
+        y0 = np.zeros((B, 6), np.float32)
+        y0[:, 1] = rng.uniform(-0.02, 0.02, B)
+        y0[:, 3] = rng.uniform(0.2, 0.8, B)
+    out = {}
+    for dev in ("cpu", cuda):
+        ctrl = build_vehicle_controller(n_horiz=n_horiz, device=dev, **kw)
+        road = straight_centerline(100, device=dev) if variant == "config1" \
+            else _lane_change_road(dev)
+        param = {"y0": torch.as_tensor(y0, device=dev), "p": VehicleParams(),
+                 "centerline": road}
+        before = wrapper.launches
+        res = ctrl.step(ctrl.init_carry(B, dev), param)
+        out[str(dev)] = (res, wrapper.launches - before)
+    (r_cpu, n_cpu), (r_gpu, n_gpu) = out["cpu"], out["cuda"]
+    print(f"{variant}: launches {n_gpu}, inner iterations "
+          f"{r_gpu.result.inner_iterations.tolist()} (card) "
+          f"{r_cpu.result.inner_iterations.tolist()} (CPU)")
+    assert n_cpu == 0 and n_gpu > int(r_gpu.result.inner_iterations.max())
+    assert bool(r_gpu.result.converged.all())
+    np.testing.assert_array_equal(r_gpu.result.converged.cpu().numpy(),
+                                  r_cpu.result.converged.numpy())
+    np.testing.assert_allclose(r_gpu.result.psi.cpu().numpy(),
+                               r_cpu.result.psi.numpy(), rtol=2e-2, atol=1e-4)
+    np.testing.assert_allclose(r_gpu.u0.cpu().numpy(), r_cpu.u0.numpy(),
+                               rtol=0, atol=3e-2)

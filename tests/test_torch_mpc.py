@@ -92,13 +92,12 @@ def test_cold_and_warm_steps_match_jax():
 
 
 def test_unported_options_raise():
+    # the kinematic model and the bounded state constraints are ported
+    # (tests/test_torch_mpc_config1.py, tests/test_torch_mpc_constrained.py)
     import pytest
-    for kw in ({"window": 20}, {"bound_state_constraints": True},
-               {"obstacle_weight": 1.0}):
+    for kw in ({"window": 20}, {"obstacle_weight": 1.0}):
         with pytest.raises(NotImplementedError):
             tmpc.build_vehicle_ocp(n_horiz=4, **kw)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tmpc.build_vehicle_ocp(n_horiz=4, model="simplified")
 
 
 def _port_modules():

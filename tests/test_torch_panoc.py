@@ -199,11 +199,15 @@ def test_lbfgs_two_loop_matches_jax():
 
 
 def test_general_constraints_raise():
+    # The general-constraint path is ported (tests/test_torch_alm.py); what
+    # it still refuses, as the JAX package does when it broadcasts sigma_0 to
+    # (m,), is a per-constraint initial penalty of the wrong length.
     n = 2
     C = tproblem.Box(-torch.ones(n), torch.ones(n))
     D = tproblem.Box(torch.tensor([-float("inf")]), torch.tensor([1.0]))
     prob = tproblem.Problem(cost=lambda u, _: (u ** 2).sum(1),
                             constraints=lambda u, _: u.sum(1, keepdim=True),
                             C=C, D=D, n=n, m=1)
-    with pytest.raises(NotImplementedError, match="general-constraint"):
-        talm.make_alm_solver(prob)
+    talm.make_alm_solver(prob)
+    with pytest.raises(ValueError, match="sigma_0"):
+        talm.make_alm_solver(prob, TAlmConfig(sigma_0=(1.0, 2.0)))
