@@ -33,9 +33,14 @@ nonzero exit:
    plain version in float32 misses its own float64 value by the bar too;
    such lanes are counted, and must be under 1% of a check's lanes;
 4. timing: each kernel and its plain version on the first captured fan of
-   each shape (CUDA events; the kernel's median of 50 runs, the plain
-   version's of 50 for K1, 10 for K2 and 5 for K3, each measured twice in
-   turns);
+   each shape, in turns (plain, kernel, plain, kernel). The kernel's time is
+   CUDA events around 200 back-to-back launches, over the count; the plain
+   version's the median of 50 (K1), 10 (K2) or 5 (K3) calls, each between
+   its own events. Beside them: the kernel's single-lane latency (E=1 on
+   drawn inputs, at N and at N/2) and its serial chain, N times the slope
+   of the single-lane time over N (see ``serial_chain``); and its bound,
+   the larger of the bytes it must move over 3.35 TB/s and the operations
+   it must do over 67 TFLOP/s (see ``fan_bound``);
 5. the three paths, each through ``mpc_tpu_torch.bench`` with every launch
    count set to 0 just before it and read just after: the headline at batch
    1024 (5 warm-up, 20 timed steps, then the batch-1 loop over 50 steps),
@@ -231,17 +236,97 @@ def median_ms(fn, n=50, warmup=3):
     return times[len(times) // 2]
 
 
+def launch_ms(fn, n=200, warmup=3):
+    """Device time per call of ``fn``: CUDA events around ``n`` calls
+    launched back to back, over ``n``. Unlike events around each call, this
+    does not count the host wrapper's time between launches, as long as the
+    host stays ahead of the card."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def time_pair(tag, kernel, plain, n_plain, info):
     """Kernel and plain version in turns (plain, kernel, plain, kernel);
-    returns the smaller median of each."""
+    returns the smaller time of each: the kernel's per launch over 200
+    back-to-back launches, the plain version's median of ``n_plain``."""
     ms_plain = median_ms(plain, n=n_plain, warmup=1)
-    ms_kernel = median_ms(kernel)
+    ms_kernel = launch_ms(kernel)
     ms_plain2 = median_ms(plain, n=n_plain, warmup=1)
-    ms_kernel2 = median_ms(kernel)
+    ms_kernel2 = launch_ms(kernel)
     print(f"timing {tag}: kernel {ms_kernel:.4f} / {ms_kernel2:.4f} ms "
-          f"(median of 50), plain {ms_plain:.4f} / {ms_plain2:.4f} ms "
-          f"(median of {n_plain}); CUDA events; {info['nvidia_smi']}")
+          f"(200 back-to-back launches), plain {ms_plain:.4f} / "
+          f"{ms_plain2:.4f} ms (median of {n_plain}); CUDA events; "
+          f"{info['nvidia_smi']}")
     return min(ms_kernel, ms_kernel2), min(ms_plain, ms_plain2)
+
+
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
+#: outside the tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+#: Operations of a fan lane, counted from csrc/fused_psi.cu. Rule: each add,
+#: subtract, multiply, compare and select counts 1, and so does each
+#: transcendental function (atan2f, atanf, sinf, cosf, tanf), square root and
+#: division, though each takes many instructions: the bound is a floor.
+ODE_OPS = {"pacejka": 53, "simplified": 15}  # one evaluation of f(x, d, delta)
+RK4_OPS = 13        # per state component and RK4 step: 3 stage points x 2,
+                    # then k1 + 2 k2 + 2 k3 + k4 (5), times h/6, plus x
+COST_OPS = 45       # one stage cost at its selected centerline points
+ARGMIN_OPS = 6      # per centerline row: 2 differences, 2 squares, sum, compare
+AL_OPS = 11         # one constraint's penalty 0.5 sigma (zeta - clip(zeta))^2
+
+
+def fan_bound(model, al, E, n_horiz, substeps, n_cl, operands, outputs):
+    """``(bound_ms, bound_by, bytes, operations)`` of one fan call: the
+    larger of the bytes it must move (each operand read once, each output
+    written once) over the memory rate and the operations it must do over
+    the float32 rate. The forward pass is counted by the rule above; the
+    gradient as one more pass over the same operations without the argmin
+    (its index is held constant), the least a reverse sweep does."""
+    sd = 6 if model == "pacejka" else 4
+    step = 4 * ODE_OPS[model] + RK4_OPS * sd
+    stage = substeps * step + COST_OPS + (sd * AL_OPS if al else 0)
+    ops = E * n_horiz * (2 * stage + ARGMIN_OPS * n_cl)
+    nbytes = sum(t.numel() * t.element_size() for t in operands + outputs)
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", nbytes, ops)
+
+
+def serial_chain(k, wrapper, fp, info):
+    """The kernel's single-lane latency at its path's N, and its serial
+    chain: at E=1 the grid is one block, whose per-stage parallel work fits
+    its threads in one round for any N here, so the time grows with N only
+    by the serial chain; N times the slope of the single-lane time between
+    N/2 and N is that chain's time at N (for K1 and K3 the rollout and the
+    adjoint recursion, for K2 the forward and the reverse sweep)."""
+    from mpc_tpu_torch.models.params import VehicleParams
+    road = k.drawn[0][1]
+    times = {}
+    for n in (k.n_horiz // 2, k.n_horiz):
+        u, y0, cl = drawn_inputs(1, n, k.sd, road, seed=k.seed)
+        cltab, pvec = fp.fan_params(cl, VehicleParams())
+        al = drawn_al(1, n, (-1, 3), seed=k.seed + 100) if k.al else None
+        args = (u, y0, cltab, pvec, *(al or ()), n, SUBSTEPS, TS / SUBSTEPS,
+                1.0)
+        times[n] = launch_ms(lambda: wrapper(*args))
+    (n1, t1), (n2, t2) = sorted(times.items())
+    chain = n2 * (t2 - t1) / (n2 - n1)
+    print(f"single lane {k.label}: {t1:.4f} ms at N={n1}, {t2:.4f} ms at "
+          f"N={n2} (200 back-to-back launches); serial chain at N={n2} "
+          f"{chain:.4f} ms; {info['nvidia_smi']}")
+    return t2, chain
 
 
 def drive(cell, wrapper, fp, min_conv):
@@ -338,7 +423,8 @@ def kernel_phase(k, fp, bench, info):
     """Phases 3 and 4 for one kernel: its drawn and captured checks, then
     the timing of kernel and plain version at the path's fan shapes.
     Returns ``(lanes, excused, max_abs_err, max_rel_err, lane_term, ms,
-    plain_ms)``, the times at the candidate-fan shape."""
+    plain_ms, bound_ms, bound_by, single_lane_ms, serial_chain_ms)``, the
+    times and the bound at the candidate-fan shape."""
     import torch
     from mpc_tpu_torch.models.params import VehicleParams
     wrapper = getattr(fp, k.wrapper)
@@ -391,12 +477,22 @@ def kernel_phase(k, fp, bench, info):
     for E in k.shapes:
         args = by_E[E][0][1]
         u, y0, cltab, pvec, al, fa = split(k, args)
-        times.append(time_pair(
+        ms, plain_ms = time_pair(
             f"{k.label} E={E}", lambda: wrapper(*args),
             lambda: fp.fan_value_and_grad_reference(u, y0, cltab, pvec, *fa,
                                                     model=k.model, al=al),
-            k.n_plain, info))
-    return (lanes, excused, err, rel, need) + times[0]
+            k.n_plain, info)
+        psi, grad = wrapper(*args)
+        bound_ms, bound_by, nbytes, ops = fan_bound(
+            k.model, k.al, E, k.n_horiz, SUBSTEPS, cltab.shape[0],
+            [u, y0, cltab, pvec, *(al or ())], [psi, grad])
+        print(f"bound {k.label} E={E}: {nbytes} bytes, {ops} operations -> "
+              f"{bound_ms:.5f} ms ({bound_by}); kernel at "
+              f"{bound_ms / ms:.2%} of it")
+        times.append((ms, plain_ms, bound_ms, bound_by))
+    single_ms, chain_ms = serial_chain(k, wrapper, fp, info)
+    return (lanes, excused, err, rel, need) + times[0] + (single_ms,
+                                                           chain_ms)
 
 
 def main():
@@ -440,15 +536,20 @@ def main():
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
-    for k, n, (lanes, excused, err, rel, need, ms, plain_ms) in zip(
-            KERNELS, launches, measured):
+    for k, n, (lanes, excused, err, rel, need, ms, plain_ms, bound_ms,
+               bound_by, single_ms, chain_ms) in zip(KERNELS, launches,
+                                                     measured):
+        # no single PyTorch call computes the fan (rollout, argmin, stage
+        # cost and adjoint), so there is no library time
         rows.append({
             "name": k.name, "variant": k.variant, "route": "cuda",
             "source": "mpc_tpu_torch/csrc/fused_psi.cu",
             "replaces": "mpc_tpu/ops/fused_psi.py:321",
             "launches": n, "max_abs_err": err, "max_rel_err": rel,
             "lane_term_needed": need, "lanes_checked": lanes,
-            "lanes_excused": excused, "ms": ms, "plain_ms": plain_ms})
+            "lanes_excused": excused, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "single_lane_ms": single_ms, "serial_chain_ms": chain_ms})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -30,6 +30,20 @@ from mpc_tpu_torch.solver.problem import Box, Problem, build_ocp_problem
 STATE_CONSTRAINT_OFFSETS = (20.0, 1.0, 1.0, 2.0, 1.0, 0.1)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Without a card a default call raises instead of running on the
+    CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("mpc_tpu_torch: no CUDA device; the controller "
+                           "runs on the card by default. Pass device=\"cpu\" "
+                           "to run it on the CPU through the plain versions "
+                           "of its kernels")
+    return torch.device("cuda")
+
+
 class MpcCarry(NamedTuple):
     """Warm-start carry across MPC steps, one row per lane."""
     U: torch.Tensor          # (B, n_horiz * input_dim) flat input sequence
@@ -50,20 +64,26 @@ class MpcController(nn.Module):
     """A built MPC controller: ``step(carry, param)`` over a lane batch.
 
     ``param`` is the per-step parameter dict: ``y0`` (B, state_dim), ``p``
-    (VehicleParams, shared) and ``centerline`` (S, 2, shared).
+    (VehicleParams, shared) and ``centerline`` (S, 2, shared), on the
+    controller's ``device``.
     """
 
     def __init__(self, problem: Problem, solve: Callable, n_horiz: int,
-                 input_dim: int, warm_start_input: tuple):
+                 input_dim: int, warm_start_input: tuple,
+                 device: torch.device):
         super().__init__()
         self.problem = problem
         self.solve = solve
         self.n_horiz = n_horiz
         self.input_dim = input_dim
         self.warm_start_input = tuple(warm_start_input)
+        self.device = torch.device(device)
 
     def init_carry(self, batch: int, device=None,
                    dtype=torch.float32) -> MpcCarry:
+        """Cold carry for ``batch`` lanes, on the controller's device unless
+        ``device`` names another."""
+        device = self.device if device is None else device
         U0 = torch.tensor(self.warm_start_input, dtype=dtype,
                           device=device).repeat(self.n_horiz)
         m = self.problem.m
@@ -118,8 +138,10 @@ def build_vehicle_ocp(n_horiz: int = 12, v_ref: float = 1.0,
     ``al_fan_value_and_grad`` (K3). ``model="simplified"``: the 4-state
     kinematic bicycle with input boxes only (no state constraints), whose
     fan is ``kin_fan_value_and_grad`` (K2). Each fan runs its CUDA kernel on
-    a CUDA device and its plain version on the CPU. The windowed search and
-    the obstacle field are not ported yet and raise.
+    a CUDA device and its plain version on the CPU. ``device=None`` is the
+    card (:func:`resolve_device`: without one it raises; pass
+    ``device="cpu"`` for the CPU). The windowed search and the obstacle
+    field are not ported yet and raise.
     """
     if window is not None:
         raise NotImplementedError("mpc_tpu_torch: only the dense "
@@ -133,6 +155,7 @@ def build_vehicle_ocp(n_horiz: int = 12, v_ref: float = 1.0,
         state_dim, dynamics = 4, simplified_dynamics
     else:
         raise ValueError(f"unknown model {model!r}")
+    device = resolve_device(device)
     multi = make_vehicle_cost_multi(n_horiz, ts=ts, v_ref=v_ref,
                                     weights=weights, model=model)
     if params is None:
@@ -196,7 +219,9 @@ def build_vehicle_controller(n_horiz: int = 12, v_ref: float = 1.0,
                              device=None) -> MpcController:
     """Vehicle MPC controller with the reference's solver configuration
     (mpc_tpu/control/mpc.py:277-311): warm start ``U = [1, 0] * N``, L-BFGS
-    memory N, the tolerance from ``AlmConfig``."""
+    memory N, the tolerance from ``AlmConfig``. ``device=None`` is the card
+    (see :func:`build_vehicle_ocp`)."""
+    device = resolve_device(device)
     problem = build_vehicle_ocp(n_horiz, v_ref, ts, params, weights=weights,
                                 bound_state_constraints=bound_state_constraints,
                                 model=model, device=device)
@@ -206,4 +231,5 @@ def build_vehicle_controller(n_horiz: int = 12, v_ref: float = 1.0,
         panoc_cfg = PanocConfig(lbfgs_memory=n_horiz)
     solve = make_alm_solver(problem, alm_cfg, panoc_cfg)
     return MpcController(problem=problem, solve=solve, n_horiz=n_horiz,
-                         input_dim=2, warm_start_input=(1.0, 0.0))
+                         input_dim=2, warm_start_input=(1.0, 0.0),
+                         device=device)

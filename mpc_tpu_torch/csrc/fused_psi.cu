@@ -2,59 +2,70 @@
 // N-stage tracking cost at E independent evaluation lanes.
 //
 // Replaces: mpc_tpu/ops/fused_psi.py:_eval_pallas (the TPU Pallas kernel) in
-// its three variants, one template instance each:
+// its three variants:
 //   K1  model="pacejka", no augmented-Lagrangian term   (mpc_fused_psi_fan)
 //   K2  model="simplified", the kinematic bicycle        (mpc_fused_psi_fan_kin)
 //   K3  model="pacejka" with the AL term of the bounded  (mpc_fused_psi_fan_al)
 //       state constraints, reached through make_vehicle_al_multi
-// Same mathematics as the plain PyTorch version mpc_tpu_torch/ops/fused_psi.py:
-// fan_value_and_grad_reference, and the same algorithm as the batched
-// transcription _fan_adjoint_transcription, which the CPU tests hold
-// against autograd.
+// K1 and K3 are instances of the phased kernel fused_psi_fan_phased, K2 of
+// the one-thread-per-lane kernel fused_psi_fan_kernel. Same mathematics as
+// the plain PyTorch version mpc_tpu_torch/ops/fused_psi.py:
+// fan_value_and_grad_reference; the phased kernel's algorithm is the batched
+// transcription _fan_phased_transcription, the other's
+// _fan_adjoint_transcription, both held against autograd on the CPU.
 //
-// What bounds it on an H100: latency and registers, not bytes. Each lane
-// reads 2N + sd floats (and, for K3, 2 * sd * N multipliers and penalties)
-// and writes 2N + 1, but runs a strictly sequential chain: N stages x
-// substeps x 4 ODE evaluations forward (for Pacejka two atan2f, two atanf
-// and six sin/cos each; for the kinematic model one atan2f, one tanf and
-// three sin/cos), an argmin over S-1 centerline points per stage, then a
-// reverse sweep that recomputes every substep and pulls the adjoint back
-// through it. There is no data reuse across lanes apart from the centerline
-// table, the parameters and K3's constraint bounds, and no matrix product
-// anywhere, so tensor cores and bandwidth are irrelevant.
+// What bounds it on an H100: latency, not bytes or operations. Each lane
+// reads 2N + sd floats (and, for K3, 2 sd N multipliers and penalties) and
+// writes 2N + 1; its work is a few hundred thousand operations, most of them
+// in atan2f, atanf, sinf and cosf. But a lane's forward rollout is a chain of
+// N x substeps x 4 dependent ODE evaluations, and the few thousand lanes of
+// the main path fill only a few warps per SM. There is no data reuse across
+// lanes apart from the centerline table, the parameters and K3's constraint
+// bounds, and no matrix product, so tensor cores are irrelevant.
 //
-// What this design does about it (the simple version; a later PR tunes it):
-// - one thread per evaluation lane, the state in registers; the offsets
-//   come from blockIdx and the ragged edge is a bounds check (the Pallas
-//   kernel's block_e edge padding is dropped);
-// - the centerline table (S-1 rows of [nearest, previous, next]), the
-//   24-float parameter vector and, for K3, the constraint offsets and the
-//   bounds d_lo, d_up (sd + 2 sd N floats) are loaded into shared memory
-//   once per block; K3's per-lane multipliers and penalties are read from
-//   global memory where a stage needs them;
-// - the gradient is a hand-written adjoint: the forward sweep stores the N
-//   stage-start states and argmin indices in per-thread local memory, and
-//   the reverse sweep recomputes each stage's RK4 substeps from its start
-//   state (keeping the four evaluation points of every substep) instead of
-//   storing all 4 * substeps * N intermediate states;
-// - small blocks (32 threads) spread the few thousand lanes of the main path
-//   over as many SMs as possible.
+// What the phased design does about it (K1, K3). One block holds L lanes
+// (L picked by the launcher so that the grid has at least one block per SM)
+// and PH_THREADS threads, and runs three phases, with everything a phase
+// hands on in dynamic shared memory:
+// 1. one thread per lane rolls out the states and stores the N + 1 stage
+//    boundary states, nothing else: this is the only chain that is serial
+//    by nature. cos and sin of the stage's steering are computed once per
+//    stage instead of in each of its 4 x substeps evaluations;
+// 2. all threads of the block, over the block's (lane, stage) pairs, each
+//    independent given the stored states: from the stage's end state the
+//    nearest centerline point, the stage cost, its state gradient and, for
+//    K3, the penalties and their gradient sigma r 2 x_i; from its start
+//    state the stage recomputed with its Jacobian in forward mode: the
+//    derivatives of the end state along 6 columns, the start state's phi,
+//    vx, vy, omega (px and py move the end state one for one and enter
+//    nothing else) and the inputs d, delta. Each evaluation point's
+//    transcendental terms are computed once and applied to all 6 columns;
+// 3. one thread per lane sums psi in the plain version's order and runs the
+//    adjoint, a short linear recursion: with v = lam + g_k,
+//    grad_k = B_k^T v + (2 c5 d_k, 2 c4 delta_k) and lam = A_k^T v, from
+//    k = N-1 down to 0. The gradient goes out through shared memory in one
+//    coalesced pass.
+// Above 48 KB of shared memory the launcher opts in to the card's limit.
+// K2 keeps the one-thread-per-lane kernel (forward sweep, then a reverse
+// sweep that recomputes each stage and pulls the adjoint back through it),
+// with its stage-start states in per-thread local memory.
 //
-// Numerics: native atan2f/atanf/tanf/sinf/cosf (no --use_fast_math: the
-// kernel is held to psi rtol 2e-5 and grad rtol 2e-4 against the plain
-// version). The forward sweep evaluates every expression in the plain
-// version's order and is built with -fmad=false, so each operation rounds as
-// PyTorch's separate elementwise kernels do: the states, and with them the
-// nearest-point indices, follow the plain version on the card instead of
+// Numerics: native atan2f/atanf/tanf/sinf/cosf (no --use_fast_math). Every
+// state and every psi term is evaluated in the plain version's operation
+// order and the library is built with -fmad=false, so each operation rounds
+// as PyTorch's separate elementwise kernels do: the states, and with them
+// the nearest-point indices, follow the plain version on the card instead of
 // drifting by a few ulps and flipping an argmin at a near-tie (a jump in the
-// cost). The argmin compares dx*dx + dy*dy with strict <, scanning from
-// index 0, so the first index wins a tie as torch.argmin / jnp.argmin do;
-// the index is held constant in the reverse sweep (stop_gradient at
-// mpc_tpu/ops/fused_psi.py:181). Derivatives: sign(vx) -> 0, wrap_to_pi -> 1,
-// speed = sqrt(vx^2 + vy^2) (Pacejka) or |v| with d|v|/dv = sign(v), 0 at 0
-// (kinematic). The AL clip zhat = clip(zeta, d_lo, d_up) propagates NaN as
-// torch.clamp does; its gradient enters only through sigma (zeta - zhat),
-// which is 0 wherever the clip is inactive or at a tie.
+// cost), and psi is bit-identical to it. Tangents and adjoints, where no
+// such identity is needed, use explicit fmaf. The argmin compares
+// dx*dx + dy*dy with strict <, scanning from index 0, so the first index
+// wins a tie as torch.argmin / jnp.argmin do; the index is held constant in
+// the gradient (stop_gradient at mpc_tpu/ops/fused_psi.py:181).
+// Derivatives: sign(vx) -> 0, wrap_to_pi -> 1, speed = sqrt(vx^2 + vy^2)
+// (Pacejka) or |v| with d|v|/dv = sign(v), 0 at 0 (kinematic). The AL clip
+// zhat = clip(zeta, d_lo, d_up) propagates NaN as torch.clamp does; its
+// gradient enters only through sigma (zeta - zhat), which is 0 wherever the
+// clip is inactive or at a tie.
 //
 // Build (no PyTorch headers, plain C entry points bound with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -66,7 +77,9 @@
 #define MAX_N 64        // horizon limit (ops/fused_psi.py KERNEL_MAX_HORIZON)
 #define MAX_SUB 8       // RK4 substeps limit (KERNEL_MAX_SUBSTEPS)
 #define N_PARAMS 24     // VehicleParams.to_kernel_vec length
-#define BLOCK 32
+#define BLOCK 32        // K2: threads (= lanes) per block
+#define PH_THREADS 128  // phased kernel: threads per block
+#define PH_MAX_LANES 32 // phased kernel: most lanes per block
 
 // indices into the parameter vector (models/params.py KERNEL_PARAM_FIELDS)
 #define P_AXIS_FRONT 1
@@ -88,7 +101,31 @@
 
 struct Par {
     float lf, lr, m, iz, bf, cf, df, br, cr, dr, cm1, cm2, cr0, cr2, fr, acc;
+    float inv_m, inv_iz;  // for tangents only: a state divides by m, iz
 };
+
+__device__ __forceinline__ Par load_par(const float* s_p) {
+    Par p;
+    p.lf = s_p[P_AXIS_FRONT];
+    p.lr = s_p[P_AXIS_REAR];
+    p.m = s_p[P_MASS];
+    p.iz = s_p[P_INERTIA];
+    p.bf = s_p[P_BF];
+    p.cf = s_p[P_CF];
+    p.df = s_p[P_DF];
+    p.br = s_p[P_BR];
+    p.cr = s_p[P_CR];
+    p.dr = s_p[P_DR];
+    p.cm1 = s_p[P_CM1];
+    p.cm2 = s_p[P_CM2];
+    p.cr0 = s_p[P_CR0];
+    p.cr2 = s_p[P_CR2];
+    p.fr = s_p[P_FRICTION];
+    p.acc = s_p[P_ACCELERATION];
+    p.inv_m = 1.f / p.m;
+    p.inv_iz = 1.f / p.iz;
+    return p;
+}
 
 struct Cfg {
     int n_horiz, n_cl, substeps;
@@ -110,79 +147,123 @@ __device__ __forceinline__ float wrap_to_pi(float a) {
 struct Pacejka {
     static constexpr int SD = 6;
 
-    // k = f(x, d, delta)
-    static __device__ __forceinline__ void deriv(const float x[6], float d,
-                                                 float dl, const Par& p,
-                                                 float k[6]) {
-        const float phi = x[2], vx = x[3], vy = x[4], om = x[5];
-        const float af = -atan2f(om * p.lf + vy, vx) + dl;
-        const float ar = atan2f(om * p.lr - vy, vx);
-        const float sgn = (float)((vx > 0.f) - (vx < 0.f));
-        const float frx = (p.cm1 - p.cm2 * vx) * d - p.cr0 * sgn - p.cr2 * vx * vx;
-        const float ffy = p.df * sinf(p.cf * atanf(p.bf * af));
-        const float fry = p.dr * sinf(p.cr * atanf(p.br * ar));
-        const float cphi = cosf(phi), sphi = sinf(phi);
-        const float cd = cosf(dl), sd = sinf(dl);
-        k[0] = vx * cphi - vy * sphi;
-        k[1] = vx * sphi + vy * cphi;
-        k[2] = om;
-        k[3] = (frx - ffy * sd + p.m * vy * om) / p.m;
-        k[4] = (fry + ffy * cd - p.m * vx * om) / p.m;
-        k[5] = (ffy * p.lf * cd - fry * p.lr) / p.iz;
-    }
+    // The ODE at one evaluation point, k = f(x, d, delta), and the partial
+    // derivatives its tangents need: of ffy (vx, vy, omega, delta), fry (vx,
+    // vy, omega) and frx (vx, d). cd, sd = cos, sin(delta) of the stage.
+    struct Point {
+        float k[6];
+        float cphi, sphi, vx, vy, om, cd, sd, ffy;
+        float f_vx, f_vy, f_om, f_dl, r_vx, r_vy, r_om, x_vx, x_d;
+    };
 
-    // Pull the cotangent mu back through f at (x, d, delta): g += J_x^T mu,
-    // gd += df/dd . mu, gdl += df/ddelta . mu. Mirrors _pacejka_vjp.
-    static __device__ __forceinline__ void deriv_vjp(const float x[6], float d,
-                                                     float dl, const Par& p,
-                                                     const float mu[6],
-                                                     float g[6], float& gd,
-                                                     float& gdl) {
-        const float phi = x[2], vx = x[3], vy = x[4], w = x[5];
-        const float a1 = w * p.lf + vy;
-        const float a2 = w * p.lr - vy;
+    static __device__ __forceinline__ void point(const float x[6], float d,
+                                                 float dl, float cd, float sd,
+                                                 const Par& p, Point& q) {
+        const float phi = x[2], vx = x[3], vy = x[4], om = x[5];
+        const float a1 = om * p.lf + vy;
+        const float a2 = om * p.lr - vy;
         const float af = -atan2f(a1, vx) + dl;
         const float ar = atan2f(a2, vx);
-        const float bfa = p.bf * af;
-        const float bra = p.br * ar;
-        const float ta_f = atanf(bfa);
-        const float ta_r = atanf(bra);
+        const float sgn = (float)((vx > 0.f) - (vx < 0.f));
+        const float frx = (p.cm1 - p.cm2 * vx) * d - p.cr0 * sgn - p.cr2 * vx * vx;
+        const float bfa = p.bf * af, bra = p.br * ar;
+        const float ta_f = atanf(bfa), ta_r = atanf(bra);
         const float ffy = p.df * sinf(p.cf * ta_f);
+        const float fry = p.dr * sinf(p.cr * ta_r);
         const float cphi = cosf(phi), sphi = sinf(phi);
-        const float cd = cosf(dl), sd = sinf(dl);
+        q.k[0] = vx * cphi - vy * sphi;
+        q.k[1] = vx * sphi + vy * cphi;
+        q.k[2] = om;
+        q.k[3] = (frx - ffy * sd + p.m * vy * om) / p.m;
+        q.k[4] = (fry + ffy * cd - p.m * vx * om) / p.m;
+        q.k[5] = (ffy * p.lf * cd - fry * p.lr) / p.iz;
+        // the tangents' terms (dead code where only k is used)
+        q.cphi = cphi;
+        q.sphi = sphi;
+        q.vx = vx;
+        q.vy = vy;
+        q.om = om;
+        q.cd = cd;
+        q.sd = sd;
+        q.ffy = ffy;
+        q.f_dl = p.df * cosf(p.cf * ta_f) * p.cf * p.bf / (1.f + bfa * bfa);
+        const float s1 = q.f_dl / (vx * vx + a1 * a1);
+        const float s2 = p.dr * cosf(p.cr * ta_r) * p.cr * p.br / (1.f + bra * bra)
+            / (vx * vx + a2 * a2);
+        q.f_vx = s1 * a1;
+        q.f_vy = -s1 * vx;
+        q.f_om = q.f_vy * p.lf;
+        q.r_vx = -s2 * a2;
+        q.r_vy = -s2 * vx;
+        q.r_om = -q.r_vy * p.lr;
+        q.x_vx = -p.cm2 * d - 2.f * p.cr2 * vx;
+        q.x_d = p.cm1 - p.cm2 * vx;
+    }
 
-        const float q3 = mu[3] / p.m, q4 = mu[4] / p.m, q5 = mu[5] / p.iz;
-        float g_phi = mu[0] * (-vx * sphi - vy * cphi) + mu[1] * (vx * cphi - vy * sphi);
-        float g_vx = mu[0] * cphi + mu[1] * sphi;
-        float g_vy = -mu[0] * sphi + mu[1] * cphi;
-        float g_w = mu[2];
-        const float g_frx = q3;
-        const float g_ffy = -q3 * sd + q4 * cd + q5 * p.lf * cd;
-        const float g_fry = q4 - q5 * p.lr;
-        g_vy += q3 * p.m * w;
-        g_w += q3 * p.m * vy - q4 * p.m * vx;
-        g_vx -= q4 * p.m * w;
-        float g_dl = -ffy * (q3 * cd + q4 * sd + q5 * p.lf * sd);
-        const float g_d = g_frx * (p.cm1 - p.cm2 * vx);
-        g_vx += g_frx * (-p.cm2 * d - 2.f * p.cr2 * vx);
-        const float g_af = g_ffy * p.df * cosf(p.cf * ta_f) * p.cf * p.bf / (1.f + bfa * bfa);
-        const float g_ar = g_fry * p.dr * cosf(p.cr * ta_r) * p.cr * p.br / (1.f + bra * bra);
-        const float r1 = vx * vx + a1 * a1;
-        const float r2 = vx * vx + a2 * a2;
-        g_dl += g_af;
-        const float g_a1 = -g_af * vx / r1;
-        g_vx += g_af * a1 / r1;
-        const float g_a2 = g_ar * vx / r2;
-        g_vx -= g_ar * a2 / r2;
-        g_w += g_a1 * p.lf + g_a2 * p.lr;
-        g_vy += g_a1 - g_a2;
+    static __device__ __forceinline__ void deriv(const float x[6], float d,
+                                                 float dl, float cd, float sd,
+                                                 const Par& p, float k[6]) {
+        Point q;
+        point(x, d, dl, cd, sd, p, q);
+#pragma unroll
+        for (int i = 0; i < 6; ++i) k[i] = q.k[i];
+    }
 
-        g[2] += g_phi;
-        g[3] += g_vx;
-        g[4] += g_vy;
-        g[5] += g_w;
-        gd += g_d;
-        gdl += g_dl;
+    // dk = derivative of k at q along tangent column j: t = d (phi, vx, vy,
+    // omega) of the point; column 4 also moves d by 1, column 5 delta by 1.
+    // t[i] enters only where bit i of mask is set: a stage's start tangents
+    // are unit and zero columns, and a known 0 must not multiply a
+    // coefficient that is 0/0 at a standstill (vx = vy = omega = 0).
+    // Mirrors _pacejka_tangent.
+    static __device__ __forceinline__ void tangent(const Point& q,
+                                                   const Par& p,
+                                                   const float t[4], int j,
+                                                   int mask, float dk[6]) {
+        float tffy = 0.f, tfry = 0.f, tfrx = 0.f;
+        float a0 = 0.f, a1 = 0.f, a3 = 0.f, a4 = 0.f;
+        if (mask & 1) {
+            a0 = -q.k[1] * t[0];
+            a1 = q.k[0] * t[0];
+        }
+        if (mask & 2) {
+            tffy = q.f_vx * t[1];
+            tfry = q.r_vx * t[1];
+            tfrx = q.x_vx * t[1];
+            a0 = fmaf(q.cphi, t[1], a0);
+            a1 = fmaf(q.sphi, t[1], a1);
+            a4 = -q.om * t[1];
+        }
+        if (mask & 4) {
+            tffy = fmaf(q.f_vy, t[2], tffy);
+            tfry = fmaf(q.r_vy, t[2], tfry);
+            a0 = fmaf(-q.sphi, t[2], a0);
+            a1 = fmaf(q.cphi, t[2], a1);
+            a3 = q.om * t[2];
+        }
+        if (mask & 8) {
+            tffy = fmaf(q.f_om, t[3], tffy);
+            tfry = fmaf(q.r_om, t[3], tfry);
+            a3 = fmaf(q.vy, t[3], a3);
+            a4 = fmaf(-q.vx, t[3], a4);
+        }
+        if (j == 4) tfrx += q.x_d;
+        if (j == 5) tffy += q.f_dl;
+        // k3 = (frx - ffy sd + m vy om) / m, k4 = (fry + ffy cd - m vx om) / m,
+        // k5 = (ffy lf cd - fry lr) / iz
+        float n3 = fmaf(-q.sd, tffy, tfrx);
+        float n4 = fmaf(q.cd, tffy, tfry);
+        float n5 = fmaf(p.lf * q.cd, tffy, -p.lr * tfry);
+        if (j == 5) {
+            n3 = fmaf(-q.ffy, q.cd, n3);
+            n4 = fmaf(-q.ffy, q.sd, n4);
+            n5 = fmaf(-p.lf * q.ffy, q.sd, n5);
+        }
+        dk[0] = a0;
+        dk[1] = a1;
+        dk[2] = (mask & 8) ? t[3] : 0.f;
+        dk[3] = fmaf(n3, p.inv_m, a3);
+        dk[4] = fmaf(n4, p.inv_m, a4);
+        dk[5] = n5 * p.inv_iz;
     }
 
     static __device__ __forceinline__ float speed(const float x[6]) {
@@ -249,7 +330,7 @@ struct Kinematic {
     }
 };
 
-// One classical RK4 step in place.
+// One classical RK4 step in place (K2).
 template <class M>
 __device__ __forceinline__ void rk4_step(float x[M::SD], float d, float dl,
                                          const Par& p, const Cfg& c) {
@@ -264,6 +345,27 @@ __device__ __forceinline__ void rk4_step(float x[M::SD], float d, float dl,
 #pragma unroll
     for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.h * k3[i];
     M::deriv(t, d, dl, p, k4);
+#pragma unroll
+    for (int i = 0; i < M::SD; ++i)
+        x[i] = x[i] + c.h6 * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]);
+}
+
+// The same step with the stage's cos, sin(delta) given (K1, K3).
+template <class M>
+__device__ __forceinline__ void rk4_step_cs(float x[M::SD], float d, float dl,
+                                            float cd, float sd, const Par& p,
+                                            const Cfg& c) {
+    float k1[M::SD], k2[M::SD], k3[M::SD], k4[M::SD], t[M::SD];
+    M::deriv(x, d, dl, cd, sd, p, k1);
+#pragma unroll
+    for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.hh * k1[i];
+    M::deriv(t, d, dl, cd, sd, p, k2);
+#pragma unroll
+    for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.hh * k2[i];
+    M::deriv(t, d, dl, cd, sd, p, k3);
+#pragma unroll
+    for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.h * k3[i];
+    M::deriv(t, d, dl, cd, sd, p, k4);
 #pragma unroll
     for (int i = 0; i < M::SD; ++i)
         x[i] = x[i] + c.h6 * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]);
@@ -327,63 +429,30 @@ __device__ __forceinline__ float al_residual(float xi, float off, float lam,
     return zeta - zhat;
 }
 
-// lam, sig (E, m) and off (SD,), lo, up (m,) are read only when AL is true.
-template <class M, bool AL>
+// ---------------------------------------------------------------------------
+// K2: one thread per lane
+// ---------------------------------------------------------------------------
+
+template <class M>
 __global__ void __launch_bounds__(BLOCK)
 fused_psi_fan_kernel(const float* __restrict__ u, const float* __restrict__ y0,
                      const float* __restrict__ cltab,
-                     const float* __restrict__ pvec,
-                     const float* __restrict__ lam,
-                     const float* __restrict__ sig,
-                     const float* __restrict__ off,
-                     const float* __restrict__ lo,
-                     const float* __restrict__ up, float* __restrict__ psi,
+                     const float* __restrict__ pvec, float* __restrict__ psi,
                      float* __restrict__ grad, int E, Cfg c) {
     constexpr int SD = M::SD;
-    const int m = SD * c.n_horiz;
     extern __shared__ float smem[];
     float* s_cl = smem;                   // n_cl * 6
     float* s_p = s_cl + c.n_cl * 6;       // N_PARAMS
-    float* s_off = s_p + N_PARAMS;        // SD      (AL only)
-    float* s_lo = s_off + SD;             // m       (AL only)
-    float* s_up = s_lo + m;               // m       (AL only)
     for (int i = threadIdx.x; i < c.n_cl * 6; i += blockDim.x) s_cl[i] = cltab[i];
     for (int i = threadIdx.x; i < N_PARAMS; i += blockDim.x) s_p[i] = pvec[i];
-    if (AL) {
-        for (int i = threadIdx.x; i < SD; i += blockDim.x) s_off[i] = off[i];
-        for (int i = threadIdx.x; i < m; i += blockDim.x) {
-            s_lo[i] = lo[i];
-            s_up[i] = up[i];
-        }
-    }
     __syncthreads();
 
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= E) return;
-
-    Par p;
-    p.lf = s_p[P_AXIS_FRONT];
-    p.lr = s_p[P_AXIS_REAR];
-    p.m = s_p[P_MASS];
-    p.iz = s_p[P_INERTIA];
-    p.bf = s_p[P_BF];
-    p.cf = s_p[P_CF];
-    p.df = s_p[P_DF];
-    p.br = s_p[P_BR];
-    p.cr = s_p[P_CR];
-    p.dr = s_p[P_DR];
-    p.cm1 = s_p[P_CM1];
-    p.cm2 = s_p[P_CM2];
-    p.cr0 = s_p[P_CR0];
-    p.cr2 = s_p[P_CR2];
-    p.fr = s_p[P_FRICTION];
-    p.acc = s_p[P_ACCELERATION];
-
+    const Par p = load_par(s_p);
     const int n = 2 * c.n_horiz;
     const float* ue = u + (size_t)e * n;
     float* ge = grad + (size_t)e * n;
-    const float* le = AL ? lam + (size_t)e * m : nullptr;
-    const float* se = AL ? sig + (size_t)e * m : nullptr;
 
     // ---- forward sweep: stage-start states, argmin indices, psi ----------
     float starts[MAX_N][SD];
@@ -400,17 +469,6 @@ fused_psi_fan_kernel(const float* __restrict__ u, const float* __restrict__ y0,
         const int j = nearest(x[0], x[1], s_cl, c.n_cl);
         idx[k] = j;
         tot += stage_cost<M>(x, d, dl, s_cl + 6 * j, c, nullptr, nullptr, nullptr);
-        if (AL) {
-            // the stage's penalties after its cost, in the plain version's
-            // order: tot + (0.5 sigma) * r^2 for i = 0..SD-1
-#pragma unroll
-            for (int i = 0; i < SD; ++i) {
-                const int jj = k * SD + i;
-                const float r = al_residual(x[i], s_off[i], le[jj], se[jj],
-                                            s_lo[jj], s_up[jj]);
-                tot += (0.5f * se[jj]) * (r * r);
-            }
-        }
     }
     psi[e] = tot;
 
@@ -445,16 +503,6 @@ fused_psi_fan_kernel(const float* __restrict__ u, const float* __restrict__ y0,
         }
         float gd = 0.f, gdl = 0.f;
         stage_cost<M>(xs, d, dl, s_cl + 6 * idx[k], c, adj, &gd, &gdl);
-        if (AL) {
-            // d/dx_i of 0.5 sigma r^2 = sigma r * 2 x_i
-#pragma unroll
-            for (int i = 0; i < SD; ++i) {
-                const int jj = k * SD + i;
-                const float r = al_residual(xs[i], s_off[i], le[jj], se[jj],
-                                            s_lo[jj], s_up[jj]);
-                adj[i] += se[jj] * r * (2.f * xs[i]);
-            }
-        }
 
         for (int s = c.substeps - 1; s >= 0; --s) {
             // x_out = x + h/6 (k1 + 2 k2 + 2 k3 + k4), k_i = f(point_i)
@@ -497,19 +545,262 @@ fused_psi_fan_kernel(const float* __restrict__ u, const float* __restrict__ y0,
     }
 }
 
+// ---------------------------------------------------------------------------
+// K1, K3: the phased kernel
+// ---------------------------------------------------------------------------
+
+// Offsets (in floats) of one block's dynamic shared memory. A (lane, stage)
+// pair's slot is l * np + k and a boundary state's l * xp + k, with np, xp
+// odd so that the lanes of a warp in phases 1 and 3 hit distinct banks.
+struct PhLayout {
+    int np, xp;
+    size_t cl, p, off, lo, up, u, x, T, g, cost, pen, total;
+};
+
+__host__ __device__ __forceinline__ PhLayout ph_layout(int sd, bool al, int L,
+                                                       int n_horiz, int n_cl) {
+    PhLayout y;
+    const size_t m = al ? (size_t)sd * n_horiz : 0;
+    y.np = n_horiz | 1;
+    y.xp = (n_horiz + 1) | 1;
+    const size_t pairs = (size_t)L * y.np;
+    y.cl = 0;                                   // centerline table, n_cl x 6
+    y.p = y.cl + (size_t)n_cl * 6;              // parameters
+    y.off = y.p + N_PARAMS;                     // AL: offsets (sd)
+    y.lo = y.off + (al ? sd : 0);               // AL: d_lo (m)
+    y.up = y.lo + m;                            // AL: d_up (m)
+    y.u = y.up + m;                             // inputs, then the gradient
+    y.x = y.u + (size_t)L * 2 * n_horiz;        // boundary states, sd planes
+    y.T = y.x + (size_t)sd * L * y.xp;          // Jacobian columns, sd x sd planes
+    y.g = y.T + (size_t)sd * sd * pairs;        // stage state gradients, sd planes
+    y.cost = y.g + (size_t)sd * pairs;          // stage costs
+    y.pen = y.cost + pairs;                     // AL: penalties, sd planes
+    y.total = y.pen + (al ? (size_t)sd * pairs : 0);
+    return y;
+}
+
+// Phase 2's linearisation: the stage recomputed from its start state xs,
+// with T[j][r] = d x_end[r] along column j (j < sd - 2: the start state's
+// component j + 2; sd - 2: the input d; sd - 1: delta). Mirrors
+// _stage_linearisation.
+template <class M>
+__device__ __forceinline__ void stage_jacobian(const float xs[M::SD], float d,
+                                               float dl, const Par& p,
+                                               const Cfg& c,
+                                               float T[M::SD][M::SD]) {
+    constexpr int SD = M::SD, NX = SD - 2;
+    const float cd = cosf(dl), sd = sinf(dl);
+    float x[SD];
+#pragma unroll
+    for (int i = 0; i < SD; ++i) x[i] = xs[i];
+#pragma unroll
+    for (int j = 0; j < SD; ++j)
+#pragma unroll
+        for (int r = 0; r < SD; ++r) T[j][r] = (j < NX && r == j + 2) ? 1.f : 0.f;
+    for (int s = 0; s < c.substeps; ++s) {
+        float P[SD][NX], S[SD][SD], acc[SD], xa[SD];
+#pragma unroll
+        for (int j = 0; j < SD; ++j)
+#pragma unroll
+            for (int r = 0; r < NX; ++r) P[j][r] = T[j][r + 2];
+#pragma unroll
+        for (int i = 0; i < SD; ++i) xa[i] = x[i];
+#pragma unroll
+        for (int ev = 0; ev < 4; ++ev) {
+            typename M::Point q;
+            M::point(xa, d, dl, cd, sd, p, q);
+            const float w = (ev == 1 || ev == 2) ? 2.f : 1.f;
+            const float cn = ev == 2 ? c.h : c.hh;
+            const bool start = ev == 0 && s == 0;
+#pragma unroll
+            for (int j = 0; j < SD; ++j) {
+                float dk[SD];
+                if (start)
+                    M::tangent(q, p, P[j], j, j < NX ? 1 << j : 0, dk);
+                else
+                    M::tangent(q, p, P[j], j, (1 << NX) - 1, dk);
+#pragma unroll
+                for (int r = 0; r < SD; ++r)
+                    S[j][r] = ev == 0 ? dk[r] : fmaf(w, dk[r], S[j][r]);
+                if (ev < 3) {
+#pragma unroll
+                    for (int r = 0; r < NX; ++r)
+                        P[j][r] = fmaf(cn, dk[r + 2], T[j][r + 2]);
+                }
+            }
+            // the state, in the plain version's order
+#pragma unroll
+            for (int i = 0; i < SD; ++i) {
+                acc[i] = ev == 0 ? q.k[i] : acc[i] + w * q.k[i];
+                if (ev < 3) xa[i] = x[i] + cn * q.k[i];
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < SD; ++i) x[i] = x[i] + c.h6 * acc[i];
+#pragma unroll
+        for (int j = 0; j < SD; ++j)
+#pragma unroll
+            for (int r = 0; r < SD; ++r) T[j][r] = fmaf(c.h6, S[j][r], T[j][r]);
+    }
+}
+
+// lam, sig (E, m) and off (SD,), lo, up (m,) are read only when AL is true.
 template <class M, bool AL>
-static int launch(const float* u, const float* y0, const float* cltab,
-                  const float* pvec, const float* lam, const float* sig,
-                  const float* off, const float* lo, const float* up,
-                  float* psi, float* grad, int E, int n_horiz, int n_cl,
-                  int substeps, double h, float v_ref, float w0, float w1,
-                  float w2, float w3, float w4, float w5, void* stream) {
-    if (E <= 0 || n_horiz < 1 || n_horiz > MAX_N || substeps < 1 ||
-        substeps > MAX_SUB || n_cl < 1)
-        return (int)cudaErrorInvalidValue;
-    const int al_floats = AL ? M::SD + 2 * M::SD * n_horiz : 0;
-    const size_t smem = (size_t)(n_cl * 6 + N_PARAMS + al_floats) * sizeof(float);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+__global__ void __launch_bounds__(PH_THREADS)
+fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
+                     const float* __restrict__ cltab,
+                     const float* __restrict__ pvec,
+                     const float* __restrict__ lam,
+                     const float* __restrict__ sig,
+                     const float* __restrict__ off,
+                     const float* __restrict__ lo,
+                     const float* __restrict__ up, float* __restrict__ psi,
+                     float* __restrict__ grad, int E, Cfg c, int L) {
+    constexpr int SD = M::SD, NX = SD - 2;
+    const int N = c.n_horiz, n2 = 2 * N, m = SD * N;
+    const PhLayout y = ph_layout(SD, AL, L, N, c.n_cl);
+    extern __shared__ float smem[];
+    float* s_cl = smem + y.cl;
+    float* s_p = smem + y.p;
+    float* s_off = smem + y.off;
+    float* s_lo = smem + y.lo;
+    float* s_up = smem + y.up;
+    float* s_u = smem + y.u;
+    float* s_x = smem + y.x;
+    float* s_T = smem + y.T;
+    float* s_g = smem + y.g;
+    float* s_cost = smem + y.cost;
+    float* s_pen = smem + y.pen;
+    const int LX = L * y.xp, LP = L * y.np;   // plane strides
+    const int tid = threadIdx.x;
+    const int e0 = blockIdx.x * L;
+    const int nl = min(L, E - e0);            // lanes of this block
+
+    for (int i = tid; i < c.n_cl * 6; i += PH_THREADS) s_cl[i] = cltab[i];
+    for (int i = tid; i < N_PARAMS; i += PH_THREADS) s_p[i] = pvec[i];
+    if (AL) {
+        for (int i = tid; i < SD; i += PH_THREADS) s_off[i] = off[i];
+        for (int i = tid; i < m; i += PH_THREADS) {
+            s_lo[i] = lo[i];
+            s_up[i] = up[i];
+        }
+    }
+    for (int i = tid; i < nl * n2; i += PH_THREADS) s_u[i] = u[(size_t)e0 * n2 + i];
+    __syncthreads();
+    const Par p = load_par(s_p);
+
+    // ---- phase 1: the rollout, one thread per lane ------------------------
+    if (tid < nl) {
+        float x[SD];
+#pragma unroll
+        for (int i = 0; i < SD; ++i) x[i] = y0[(size_t)(e0 + tid) * SD + i];
+        float* xo = s_x + tid * y.xp;
+        const float* ul = s_u + tid * n2;
+#pragma unroll
+        for (int i = 0; i < SD; ++i) xo[i * LX] = x[i];
+        for (int k = 0; k < N; ++k) {
+            const float d = ul[2 * k], dl = ul[2 * k + 1];
+            const float cd = cosf(dl), sd = sinf(dl);
+            for (int s = 0; s < c.substeps; ++s) rk4_step_cs<M>(x, d, dl, cd, sd, p, c);
+#pragma unroll
+            for (int i = 0; i < SD; ++i) xo[i * LX + k + 1] = x[i];
+        }
+    }
+    __syncthreads();
+
+    // ---- phase 2: every (lane, stage) pair, all threads --------------------
+    for (int q = tid; q < nl * N; q += PH_THREADS) {
+        const int l = q / N, k = q - l * N;
+        const int pi = l * y.np + k;
+        const float d = s_u[l * n2 + 2 * k], dl = s_u[l * n2 + 2 * k + 1];
+        const float* xl = s_x + l * y.xp + k;
+        float xs[SD], xe[SD], g[SD];
+#pragma unroll
+        for (int i = 0; i < SD; ++i) {
+            xs[i] = xl[i * LX];
+            xe[i] = xl[i * LX + 1];
+            g[i] = 0.f;
+        }
+        // the stage cost and its gradient at the end state
+        float gd = 0.f, gdl = 0.f;   // unused: phase 3 adds 2 c5 d, 2 c4 delta
+        const int j = nearest(xe[0], xe[1], s_cl, c.n_cl);
+        s_cost[pi] = stage_cost<M>(xe, d, dl, s_cl + 6 * j, c, g, &gd, &gdl);
+        if (AL) {
+            // the penalties 0.5 sigma r^2, each rounded as the plain version
+            // rounds it; d/dx_i = sigma r 2 x_i
+            const size_t b = (size_t)(e0 + l) * m + (size_t)k * SD;
+#pragma unroll
+            for (int i = 0; i < SD; ++i) {
+                const float sg = sig[b + i];
+                const float r = al_residual(xe[i], s_off[i], lam[b + i], sg,
+                                            s_lo[k * SD + i], s_up[k * SD + i]);
+                s_pen[i * LP + pi] = (0.5f * sg) * (r * r);
+                g[i] += sg * r * (2.f * xe[i]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < SD; ++i) s_g[i * LP + pi] = g[i];
+        // the stage's Jacobian from its start state
+        float T[SD][SD];
+        stage_jacobian<M>(xs, d, dl, p, c, T);
+#pragma unroll
+        for (int jj = 0; jj < SD; ++jj)
+#pragma unroll
+            for (int r = 0; r < SD; ++r) s_T[(jj * SD + r) * LP + pi] = T[jj][r];
+    }
+    __syncthreads();
+
+    // ---- phase 3: psi and the adjoint, one thread per lane ----------------
+    if (tid < nl) {
+        const int l = tid;
+        float tot = 0.f;
+        for (int k = 0; k < N; ++k) {
+            const int pi = l * y.np + k;
+            tot += s_cost[pi];
+            if (AL) {
+#pragma unroll
+                for (int i = 0; i < SD; ++i) tot += s_pen[i * LP + pi];
+            }
+        }
+        psi[e0 + l] = tot;
+        float* ul = s_u + l * n2;
+        float a[SD];
+#pragma unroll
+        for (int i = 0; i < SD; ++i) a[i] = 0.f;
+        for (int k = N - 1; k >= 0; --k) {
+            const int pi = l * y.np + k;
+            float v[SD];
+#pragma unroll
+            for (int r = 0; r < SD; ++r) v[r] = a[r] + s_g[r * LP + pi];
+            float gd = 2.f * c.w[5] * ul[2 * k], gdl = 2.f * c.w[4] * ul[2 * k + 1];
+#pragma unroll
+            for (int r = 0; r < SD; ++r) {
+                gd = fmaf(s_T[(NX * SD + r) * LP + pi], v[r], gd);
+                gdl = fmaf(s_T[((NX + 1) * SD + r) * LP + pi], v[r], gdl);
+            }
+            a[0] = v[0];
+            a[1] = v[1];
+#pragma unroll
+            for (int jj = 0; jj < NX; ++jj) {
+                float t = 0.f;
+#pragma unroll
+                for (int r = 0; r < SD; ++r) t = fmaf(s_T[(jj * SD + r) * LP + pi], v[r], t);
+                a[jj + 2] = t;
+            }
+            ul[2 * k] = gd;
+            ul[2 * k + 1] = gdl;
+        }
+    }
+    __syncthreads();
+    for (int i = tid; i < nl * n2; i += PH_THREADS) grad[(size_t)e0 * n2 + i] = s_u[i];
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+static Cfg make_cfg(int n_horiz, int n_cl, int substeps, double h, float v_ref,
+                    float w0, float w1, float w2, float w3, float w4, float w5) {
     Cfg c;
     c.n_horiz = n_horiz;
     c.n_cl = n_cl;
@@ -524,9 +815,82 @@ static int launch(const float* u, const float* y0, const float* cltab,
     c.w[3] = w3;
     c.w[4] = w4;
     c.w[5] = w5;
+    return c;
+}
+
+static bool valid_shape(int E, int n_horiz, int n_cl, int substeps) {
+    return E > 0 && n_horiz >= 1 && n_horiz <= MAX_N && substeps >= 1 &&
+           substeps <= MAX_SUB && n_cl >= 1;
+}
+
+// K2
+template <class M>
+static int launch(const float* u, const float* y0, const float* cltab,
+                  const float* pvec, float* psi, float* grad, int E,
+                  int n_horiz, int n_cl, int substeps, double h, float v_ref,
+                  float w0, float w1, float w2, float w3, float w4, float w5,
+                  void* stream) {
+    if (!valid_shape(E, n_horiz, n_cl, substeps)) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(n_cl * 6 + N_PARAMS) * sizeof(float);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const Cfg c = make_cfg(n_horiz, n_cl, substeps, h, v_ref, w0, w1, w2, w3, w4, w5);
     const int grid = (E + BLOCK - 1) / BLOCK;
-    fused_psi_fan_kernel<M, AL><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        u, y0, cltab, pvec, lam, sig, off, lo, up, psi, grad, E, c);
+    fused_psi_fan_kernel<M><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+        u, y0, cltab, pvec, psi, grad, E, c);
+    return (int)cudaGetLastError();
+}
+
+// The phased kernel's lanes per block and shared memory for a shape on the
+// current device: the largest L <= PH_MAX_LANES whose grid has at least
+// one block per SM (L = 1 where E is too small for that) and
+// whose shared memory fits the device's opt-in limit.
+static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int* lanes,
+                   size_t* smem) {
+    if (!valid_shape(E, n_horiz, n_cl, 1)) return (int)cudaErrorInvalidValue;
+    int dev, n_sm, smem_max;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess)
+        rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+        rc = cudaDeviceGetAttribute(&smem_max,
+                                    cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    for (int L = PH_MAX_LANES; L >= 1; L /= 2) {
+        const size_t bytes = ph_layout(sd, al, L, n_horiz, n_cl).total * sizeof(float);
+        if (bytes > (size_t)smem_max) continue;
+        if ((E + L - 1) / L >= n_sm || L == 1) {
+            *lanes = L;
+            *smem = bytes;
+            return 0;
+        }
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// K1, K3
+template <class M, bool AL>
+static int launch_phased(const float* u, const float* y0, const float* cltab,
+                         const float* pvec, const float* lam, const float* sig,
+                         const float* off, const float* lo, const float* up,
+                         float* psi, float* grad, int E, int n_horiz, int n_cl,
+                         int substeps, double h, float v_ref, float w0,
+                         float w1, float w2, float w3, float w4, float w5,
+                         void* stream) {
+    if (!valid_shape(E, n_horiz, n_cl, substeps)) return (int)cudaErrorInvalidValue;
+    int L;
+    size_t smem;
+    int rc = ph_plan(M::SD, AL, E, n_horiz, n_cl, &L, &smem);
+    if (rc != 0) return rc;
+    if (smem > 48 * 1024) {
+        rc = (int)cudaFuncSetAttribute(fused_psi_fan_phased<M, AL>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+        if (rc != 0) return rc;
+    }
+    const Cfg c = make_cfg(n_horiz, n_cl, substeps, h, v_ref, w0, w1, w2, w3, w4, w5);
+    const int grid = (E + L - 1) / L;
+    fused_psi_fan_phased<M, AL><<<grid, PH_THREADS, smem, (cudaStream_t)stream>>>(
+        u, y0, cltab, pvec, lam, sig, off, lo, up, psi, grad, E, c, L);
     return (int)cudaGetLastError();
 }
 
@@ -544,10 +908,10 @@ int mpc_fused_psi_fan(const float* u, const float* y0, const float* cltab,
                       int n_horiz, int n_cl, int substeps, double h,
                       float v_ref, float w0, float w1, float w2, float w3,
                       float w4, float w5, void* stream) {
-    return launch<Pacejka, false>(u, y0, cltab, pvec, nullptr, nullptr,
-                                  nullptr, nullptr, nullptr, psi, grad, E,
-                                  n_horiz, n_cl, substeps, h, v_ref, w0, w1,
-                                  w2, w3, w4, w5, stream);
+    return launch_phased<Pacejka, false>(u, y0, cltab, pvec, nullptr, nullptr,
+                                         nullptr, nullptr, nullptr, psi, grad,
+                                         E, n_horiz, n_cl, substeps, h, v_ref,
+                                         w0, w1, w2, w3, w4, w5, stream);
 }
 
 // K2: kinematic bicycle, sd = 4.
@@ -556,10 +920,9 @@ int mpc_fused_psi_fan_kin(const float* u, const float* y0, const float* cltab,
                           int n_horiz, int n_cl, int substeps, double h,
                           float v_ref, float w0, float w1, float w2, float w3,
                           float w4, float w5, void* stream) {
-    return launch<Kinematic, false>(u, y0, cltab, pvec, nullptr, nullptr,
-                                    nullptr, nullptr, nullptr, psi, grad, E,
-                                    n_horiz, n_cl, substeps, h, v_ref, w0, w1,
-                                    w2, w3, w4, w5, stream);
+    return launch<Kinematic>(u, y0, cltab, pvec, psi, grad, E, n_horiz, n_cl,
+                             substeps, h, v_ref, w0, w1, w2, w3, w4, w5,
+                             stream);
 }
 
 // K3: Pacejka with the augmented-Lagrangian penalty, sd = 6.
@@ -570,9 +933,21 @@ int mpc_fused_psi_fan_al(const float* u, const float* y0, const float* cltab,
                          int n_horiz, int n_cl, int substeps, double h,
                          float v_ref, float w0, float w1, float w2, float w3,
                          float w4, float w5, void* stream) {
-    return launch<Pacejka, true>(u, y0, cltab, pvec, lam, sig, off, lo, up,
-                                 psi, grad, E, n_horiz, n_cl, substeps, h,
-                                 v_ref, w0, w1, w2, w3, w4, w5, stream);
+    return launch_phased<Pacejka, true>(u, y0, cltab, pvec, lam, sig, off, lo,
+                                        up, psi, grad, E, n_horiz, n_cl,
+                                        substeps, h, v_ref, w0, w1, w2, w3, w4,
+                                        w5, stream);
+}
+
+// The phased kernel's (K1: al = 0, K3: al = 1) lanes per block and shared
+// memory bytes for E lanes on the current device; cudaErrorInvalidValue if
+// the shape does not fit even at one lane per block.
+int mpc_fused_psi_fan_plan(int al, int E, int n_horiz, int n_cl, int* lanes,
+                           int* smem_bytes) {
+    size_t smem = 0;
+    const int rc = ph_plan(Pacejka::SD, al != 0, E, n_horiz, n_cl, lanes, &smem);
+    *smem_bytes = (int)smem;
+    return rc;
 }
 
 }  // extern "C"

@@ -18,15 +18,16 @@ the tracking stage cost; ``psi[e]``, the sum of stage costs; and
   ``0.5 sigma (zeta - clip(zeta, d_lo, d_up))^2`` with
   ``zeta = x_i^2 - off_i + lam / sigma`` (mpc_tpu/ops/fused_psi.py:243-249).
 
-Three implementations of the same function live here:
+Four implementations of the same function live here:
 
 - :func:`fan_value_and_grad_reference`, the plain PyTorch version
   (structure-of-arrays rollout, gradient by autograd of the lane sum). It is
   the CPU path and the oracle the kernels are held to.
-- :func:`_fan_adjoint_transcription`, the hand-written adjoint that
-  ``csrc/fused_psi.cu`` implements, transcribed into batched torch so that
-  every partial derivative is checked against autograd on the CPU. Used
-  only by the tests.
+- :func:`_fan_phased_transcription` (K1, K3) and
+  :func:`_fan_adjoint_transcription` (K2), the algorithms of the two kernels
+  of ``csrc/fused_psi.cu``, transcribed into batched torch so that every
+  partial derivative is checked against autograd on the CPU. Used only by
+  the tests.
 - The wrappers :func:`fan_value_and_grad` (K1),
   :func:`kin_fan_value_and_grad` (K2) and :func:`al_fan_value_and_grad`
   (K3): each checks its inputs, runs the plain version for a CPU tensor, and
@@ -48,11 +49,13 @@ from mpc_tpu_torch.models.params import KERNEL_PARAM_FIELDS, VehicleParams
 from mpc_tpu_torch.ops.costs import DEFAULT_VEHICLE_WEIGHTS
 from mpc_tpu_torch.ops.road import wrap_to_pi
 
-#: limits of the kernel's per-thread buffers (csrc/fused_psi.cu MAX_N/MAX_SUB)
+#: the kernels' limits on the horizon and the RK4 substeps
+#: (csrc/fused_psi.cu MAX_N/MAX_SUB)
 KERNEL_MAX_HORIZON = 64
 KERNEL_MAX_SUBSTEPS = 8
-#: the kernel's shared memory (centerline table, parameters and, for K3,
-#: the constraint offsets and bounds) must fit the default 48 KB
+#: K2's shared memory (centerline table and parameters) must fit the
+#: default 48 KB; K1's and K3's limit is the card's opt-in limit, which
+#: their launcher checks (``phased_plan``)
 KERNEL_SMEM_FLOATS = 48 * 1024 // 4
 
 
@@ -80,6 +83,14 @@ class _Params:
 
 def _pacejka_deriv(x, d, delta, p):
     """Pacejka single-track ODE on (E,) component vectors."""
+    return _pacejka_deriv_cs(x, d, delta, torch.cos(delta), torch.sin(delta),
+                             p)
+
+
+def _pacejka_deriv_cs(x, d, delta, cos_d, sin_d, p):
+    """:func:`_pacejka_deriv` with ``cos(delta)``, ``sin(delta)`` given, so
+    that a stage computes them once for its 4 x substeps evaluations (the
+    same values, so the same bits)."""
     px, py, phi, vx, vy, omega = x
     lf, lr, m, iz = p.axis_front, p.axis_rear, p.mass, p.inertia
     af = -torch.atan2(omega * lf + vy, vx) + delta
@@ -88,7 +99,6 @@ def _pacejka_deriv(x, d, delta, p):
     ffy = p.df * torch.sin(p.cf * torch.atan(p.bf * af))
     fry = p.dr * torch.sin(p.cr * torch.atan(p.br * ar))
     cos_phi, sin_phi = torch.cos(phi), torch.sin(phi)
-    cos_d, sin_d = torch.cos(delta), torch.sin(delta)
     return (
         vx * cos_phi - vy * sin_phi,
         vx * sin_phi + vy * cos_phi,
@@ -179,7 +189,7 @@ def _al_residuals(x, k, al):
 
 def _fan_total(u, y0, cltab, pvec, n_horiz, substeps, h, v_ref, weights,
                model, al):
-    deriv, _, sd = _MODELS[model]
+    deriv, sd = _MODELS[model]
     p = _Params(pvec)
     x = tuple(y0[:, i] for i in range(sd))
     tot = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
@@ -227,64 +237,9 @@ def fan_value_and_grad_reference(u: torch.Tensor, y0: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Hand-written adjoint, transcribed line by line into csrc/fused_psi.cu
+# K2's hand-written adjoint, transcribed line by line into csrc/fused_psi.cu
+# (fused_psi_fan_kernel)
 # ---------------------------------------------------------------------------
-
-def _pacejka_vjp(x, d, delta, p, mu):
-    """Cotangent ``mu`` (6 components) pulled back through the Pacejka ODE at
-    ``(x, d, delta)``: returns ``(g_x (6 components), g_d, g_delta)``.
-    ``sign(vx)`` has derivative 0."""
-    px, py, phi, vx, vy, w = x
-    lf, lr, m, iz = p.axis_front, p.axis_rear, p.mass, p.inertia
-    a1 = w * lf + vy
-    a2 = w * lr - vy
-    af = -torch.atan2(a1, vx) + delta
-    ar = torch.atan2(a2, vx)
-    bfa = p.bf * af
-    bra = p.br * ar
-    ta_f = torch.atan(bfa)
-    ta_r = torch.atan(bra)
-    ffy = p.df * torch.sin(p.cf * ta_f)
-    cos_phi, sin_phi = torch.cos(phi), torch.sin(phi)
-    cos_d, sin_d = torch.cos(delta), torch.sin(delta)
-
-    q3, q4, q5 = mu[3] / m, mu[4] / m, mu[5] / iz
-    g_phi = mu[0] * (-vx * sin_phi - vy * cos_phi) \
-        + mu[1] * (vx * cos_phi - vy * sin_phi)
-    g_vx = mu[0] * cos_phi + mu[1] * sin_phi
-    g_vy = -mu[0] * sin_phi + mu[1] * cos_phi
-    g_w = mu[2]
-    # f3 = (frx - ffy sin_d + m vy w) / m ; f4 = (fry + ffy cos_d - m vx w) / m
-    # f5 = (ffy lf cos_d - fry lr) / iz
-    g_frx = q3
-    g_ffy = -q3 * sin_d + q4 * cos_d + q5 * lf * cos_d
-    g_fry = q4 - q5 * lr
-    g_vy = g_vy + q3 * m * w
-    g_w = g_w + q3 * m * vy - q4 * m * vx
-    g_vx = g_vx - q4 * m * w
-    g_delta = -ffy * (q3 * cos_d + q4 * sin_d + q5 * lf * sin_d)
-    # frx = (cm1 - cm2 vx) d - cr0 sign(vx) - cr2 vx^2
-    g_d = g_frx * (p.cm1 - p.cm2 * vx)
-    g_vx = g_vx + g_frx * (-p.cm2 * d - 2.0 * p.cr2 * vx)
-    # ffy = df sin(cf atan(bf af)) ; fry = dr sin(cr atan(br ar))
-    g_af = g_ffy * p.df * torch.cos(p.cf * ta_f) * p.cf * p.bf \
-        / (1.0 + bfa * bfa)
-    g_ar = g_fry * p.dr * torch.cos(p.cr * ta_r) * p.cr * p.br \
-        / (1.0 + bra * bra)
-    # af = -atan2(a1, vx) + delta ; ar = atan2(a2, vx)
-    r1 = vx * vx + a1 * a1
-    r2 = vx * vx + a2 * a2
-    g_delta = g_delta + g_af
-    g_a1 = -g_af * vx / r1
-    g_vx = g_vx + g_af * a1 / r1
-    g_a2 = g_ar * vx / r2
-    g_vx = g_vx - g_ar * a2 / r2
-    # a1 = w lf + vy ; a2 = w lr - vy
-    g_w = g_w + g_a1 * lf + g_a2 * lr
-    g_vy = g_vy + g_a1 - g_a2
-    zero = torch.zeros_like(px)
-    return (zero, zero, g_phi, g_vx, g_vy, g_w), g_d, g_delta
-
 
 def _kinematic_vjp(x, d, delta, p, mu):
     """Cotangent ``mu`` (4 components) pulled back through the kinematic
@@ -311,9 +266,9 @@ def _kinematic_vjp(x, d, delta, p, mu):
     return (zero, zero, g_pb, g_v), g_d, g_delta
 
 
-#: model -> (ODE, its vector-Jacobian product, state dimension)
-_MODELS = {"pacejka": (_pacejka_deriv, _pacejka_vjp, 6),
-           "simplified": (_kinematic_deriv, _kinematic_vjp, 4)}
+#: model -> (ODE, state dimension)
+_MODELS = {"pacejka": (_pacejka_deriv, 6),
+           "simplified": (_kinematic_deriv, 4)}
 
 
 def _stage_cost_vjp(x, d, delta, pts, v_ref, c):
@@ -338,18 +293,18 @@ def _stage_cost_vjp(x, d, delta, pts, v_ref, c):
 
 
 def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
-                               v_ref, weights, model="pacejka", al=None):
-    """The kernel's algorithm in batched torch, no autograd.
+                               v_ref, weights):
+    """K2's kernel algorithm (``fused_psi_fan_kernel``, the kinematic
+    bicycle) in batched torch, no autograd.
 
     Forward sweep: store each stage's start state and argmin index, sum the
-    stage costs (and the AL penalties). Reverse sweep, stage N-1 down to 0:
-    recompute the stage's RK4 substeps from its start state keeping the four
-    evaluation points of each substep; add the stage cost's state gradient
-    and the AL term's ``sigma (zeta - zhat) 2 x_i`` to the adjoint; pull the
-    adjoint back through the substeps in reverse, accumulating the gradients
-    w.r.t. ``d_k`` and ``delta_k``.
+    stage costs. Reverse sweep, stage N-1 down to 0: recompute the stage's
+    RK4 substeps from its start state keeping the four evaluation points of
+    each substep; add the stage cost's state gradient to the adjoint; pull
+    the adjoint back through the substeps in reverse, accumulating the
+    gradients w.r.t. ``d_k`` and ``delta_k``.
     """
-    deriv, vjp, sd = _MODELS[model]
+    deriv, vjp, sd = _kinematic_deriv, _kinematic_vjp, 4
     p = _Params(pvec)
     hh, h6 = 0.5 * h, h / 6.0
     x = tuple(y0[:, i] for i in range(sd))
@@ -363,9 +318,6 @@ def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
         idxs.append(idx)
         psi = psi + _stage_cost(x, d, delta, cltab[idx].unbind(dim=1),
                                 v_ref, weights)
-        if al is not None:
-            for s, r in _al_residuals(x, k, al):
-                psi = psi + 0.5 * s * r ** 2
 
     grad = torch.zeros_like(u)
     adj = tuple(torch.zeros_like(psi) for _ in range(sd))
@@ -387,9 +339,6 @@ def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
         g_x, g_d, g_delta = _stage_cost_vjp(
             xs, d, delta, cltab[idxs[k]].unbind(dim=1), v_ref, weights)
         adj = tuple(a + b for a, b in zip(adj, g_x))
-        if al is not None:
-            adj = tuple(a + s * r * (2.0 * xi) for a, xi, (s, r)
-                        in zip(adj, xs, _al_residuals(xs, k, al)))
         for xa, x2, x3, x4 in reversed(points):
             lk1 = tuple(h6 * a for a in adj)
             lk2 = tuple(2.0 * a for a in lk1)
@@ -412,6 +361,180 @@ def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
             g_d, g_delta = g_d + gd_, g_delta + gdl
         grad[:, 2 * k] = g_d
         grad[:, 2 * k + 1] = g_delta
+    return psi, grad
+
+
+# ---------------------------------------------------------------------------
+# The phased algorithm of K1 and K3, transcribed line by line into
+# csrc/fused_psi.cu (fused_psi_fan_phased)
+# ---------------------------------------------------------------------------
+
+def _lin(*pairs):
+    """``sum(a * t)`` over the pairs whose ``t`` is not None. A tangent
+    entry that is None is known to be 0 and multiplies nothing: at a
+    standstill (vx = vy = omega = 0) the slip angles' derivatives are 0/0,
+    and 0 * NaN would poison a column that does not depend on them."""
+    terms = [a * t for a, t in pairs if t is not None]
+    return sum(terms[1:], terms[0]) if terms else 0.0
+
+
+def _pacejka_point(x, d, delta, cos_d, sin_d, p):
+    """The Pacejka ODE ``k`` at one evaluation point and the partial
+    derivatives its tangents need, each computed once for all of them:
+    ``f`` = d ffy / d(vx, vy, omega), ``f_dl`` = d ffy / d delta, ``r`` =
+    d fry / d(vx, vy, omega), ``x_vx``, ``x_d`` = d frx / d(vx, d)."""
+    px, py, phi, vx, vy, omega = x
+    a1 = omega * p.axis_front + vy
+    a2 = omega * p.axis_rear - vy
+    bfa = p.bf * (-torch.atan2(a1, vx) + delta)
+    bra = p.br * torch.atan2(a2, vx)
+    ta_f, ta_r = torch.atan(bfa), torch.atan(bra)
+    f_dl = p.df * torch.cos(p.cf * ta_f) * p.cf * p.bf / (1.0 + bfa * bfa)
+    s1 = f_dl / (vx * vx + a1 * a1)
+    s2 = p.dr * torch.cos(p.cr * ta_r) * p.cr * p.br / (1.0 + bra * bra) \
+        / (vx * vx + a2 * a2)
+    return dict(
+        k=_pacejka_deriv_cs(x, d, delta, cos_d, sin_d, p),
+        cos_phi=torch.cos(phi), sin_phi=torch.sin(phi), vx=vx, vy=vy,
+        om=omega, cos_d=cos_d, sin_d=sin_d,
+        ffy=p.df * torch.sin(p.cf * ta_f),
+        f=(s1 * a1, -s1 * vx, -s1 * vx * p.axis_front), f_dl=f_dl,
+        r=(-s2 * a2, -s2 * vx, s2 * vx * p.axis_rear),
+        x_vx=-p.cm2 * d - 2.0 * p.cr2 * vx, x_d=p.cm1 - p.cm2 * vx)
+
+
+def _pacejka_tangent(q, p, t, j):
+    """Derivative of ``k`` at the point ``q`` along tangent column ``j``:
+    ``t = (t_phi, t_vx, t_vy, t_omega)`` of the point (px, py enter
+    nothing); column 4 also moves d by 1, column 5 delta by 1. For
+    k3 = (frx - ffy sin_d + m vy omega) / m the last term's derivative is
+    vy t_omega + omega t_vy, and so on."""
+    tphi, tvx, tvy, tom = t
+    lf, lr = p.axis_front, p.axis_rear
+    tffy = _lin(*zip(q["f"], (tvx, tvy, tom)))
+    tfry = _lin(*zip(q["r"], (tvx, tvy, tom)))
+    tfrx = _lin((q["x_vx"], tvx))
+    if j == 4:
+        tfrx = tfrx + q["x_d"]
+    if j == 5:
+        tffy = tffy + q["f_dl"]
+    n3 = tfrx - q["sin_d"] * tffy
+    n4 = tfry + q["cos_d"] * tffy
+    n5 = lf * q["cos_d"] * tffy - lr * tfry
+    if j == 5:
+        n3 = n3 - q["ffy"] * q["cos_d"]
+        n4 = n4 - q["ffy"] * q["sin_d"]
+        n5 = n5 - lf * q["ffy"] * q["sin_d"]
+    k = q["k"]
+    return (_lin((q["cos_phi"], tvx), (-q["sin_phi"], tvy), (-k[1], tphi)),
+            _lin((q["sin_phi"], tvx), (q["cos_phi"], tvy), (k[0], tphi)),
+            0.0 if tom is None else tom,
+            n3 * (1.0 / p.mass) + _lin((q["vy"], tom), (q["om"], tvy)),
+            n4 * (1.0 / p.mass) - _lin((q["vx"], tom), (q["om"], tvx)),
+            n5 * (1.0 / p.inertia))
+
+
+def _plus(a, b):
+    """``a + b`` where ``a`` may be None (0)."""
+    return b if a is None else a + b
+
+
+def _stage_linearisation(xs, d, delta, p, h, substeps):
+    """A stage recomputed from its start state ``xs`` with its Jacobian in
+    forward mode: ``T[j]`` (6 components) is the derivative of the stage's
+    end state along column j: j < 4 the start state's phi, vx, vy, omega, 4
+    the input d, 5 delta. The start state's px and py move the end state one
+    for one and enter nothing else, so they need no column. Each evaluation
+    point's transcendental terms are computed once (:func:`_pacejka_point`)
+    and applied to all six columns."""
+    hh, h6 = 0.5 * h, h / 6.0
+    cos_d, sin_d = torch.cos(delta), torch.sin(delta)
+    # the start tangents: unit columns for the state, zero for the inputs
+    T = [tuple(1.0 if r == j + 2 else None for r in range(6))
+         for j in range(6)]
+    x = xs
+    for _ in range(substeps):
+        P = [col[2:] for col in T]
+        xa, acc, S = x, None, [None] * 6
+        for w, c in ((1.0, hh), (2.0, hh), (2.0, h), (1.0, None)):
+            q = _pacejka_point(xa, d, delta, cos_d, sin_d, p)
+            dks = [_pacejka_tangent(q, p, P[j], j) for j in range(6)]
+            acc = q["k"] if acc is None \
+                else tuple(a + w * b for a, b in zip(acc, q["k"]))
+            S = [tuple(_plus(s, w * b) for s, b in zip(
+                (None,) * 6 if S[j] is None else S[j], dks[j]))
+                for j in range(6)]
+            if c is not None:
+                xa = tuple(xi + c * ki for xi, ki in zip(x, q["k"]))
+                P = [tuple(_plus(T[j][r], c * dks[j][r]) for r in range(2, 6))
+                     for j in range(6)]
+        x = tuple(xi + h6 * a for xi, a in zip(x, acc))
+        T = [tuple(_plus(t, h6 * s) for t, s in zip(T[j], S[j]))
+             for j in range(6)]
+    return T
+
+
+def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
+                              v_ref, weights, model="pacejka", al=None):
+    """The phased kernel's algorithm in batched torch, no autograd.
+
+    Phase 1, serial over stages: roll out the states, keeping the N + 1
+    stage boundary states and nothing else (cos and sin of the steering
+    computed once per stage). Phase 2, independent per stage: from the
+    stored end state the nearest-point index, the stage cost and its state
+    gradient, and the AL penalties with their gradient ``sigma r 2 x_i``;
+    from the stored start state the stage's Jacobians ``A_k`` (d x_{k+1} /
+    d x_k) and ``B_k`` (d x_{k+1} / d (d_k, delta_k)) in forward mode
+    (:func:`_stage_linearisation`). Phase 3, serial over stages: psi summed
+    in the plain version's order (stage cost, then its penalties, stage by
+    stage), so it is bit-identical; then from k = N-1 down to 0, with
+    ``v = lam + g_k``: ``grad_k = B_k^T v + (2 c5 d_k, 2 c4 delta_k)`` and
+    ``lam = A_k^T v``. Pacejka only (K1, K3).
+    """
+    if model != "pacejka":
+        raise ValueError(f"the phased algorithm is Pacejka's, not {model!r}")
+    p = _Params(pvec)
+    # phase 1
+    xs = [tuple(y0[:, i] for i in range(6))]
+    for k in range(n_horiz):
+        d, delta = u[:, 2 * k], u[:, 2 * k + 1]
+        cos_d, sin_d = torch.cos(delta), torch.sin(delta)
+        xs.append(_rk4_substeps(
+            lambda x_, d_, dl_, p_: _pacejka_deriv_cs(x_, d_, dl_, cos_d,
+                                                      sin_d, p_),
+            xs[-1], d, delta, p, h, substeps))
+    # phase 2: each stage reads only xs[k] and xs[k + 1]
+    costs, pens, gs, Ts = [], [], [], []
+    for k in range(n_horiz):
+        d, delta = u[:, 2 * k], u[:, 2 * k + 1]
+        xe = xs[k + 1]
+        pts = cltab[_nearest(xe[0], xe[1], cltab)].unbind(dim=1)
+        costs.append(_stage_cost(xe, d, delta, pts, v_ref, weights))
+        g, _, _ = _stage_cost_vjp(xe, d, delta, pts, v_ref, weights)
+        pen = []
+        if al is not None:
+            res = list(_al_residuals(xe, k, al))
+            pen = [0.5 * s * r ** 2 for s, r in res]
+            g = tuple(gi + s * r * (2.0 * xi)
+                      for gi, xi, (s, r) in zip(g, xe, res))
+        pens.append(pen)
+        gs.append(g)
+        Ts.append(_stage_linearisation(xs[k], d, delta, p, h, substeps))
+    # phase 3
+    psi = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+    for cost, pen in zip(costs, pens):
+        psi = psi + cost
+        for term in pen:
+            psi = psi + term
+    grad = torch.zeros_like(u)
+    lam = (0.0,) * 6
+    for k in reversed(range(n_horiz)):
+        v = tuple(a + b for a, b in zip(lam, gs[k]))
+        T = Ts[k]
+        grad[:, 2 * k] = _lin(*zip(T[4], v)) + 2.0 * weights[5] * u[:, 2 * k]
+        grad[:, 2 * k + 1] = _lin(*zip(T[5], v)) \
+            + 2.0 * weights[4] * u[:, 2 * k + 1]
+        lam = (v[0], v[1]) + tuple(_lin(*zip(T[j], v)) for j in range(4))
     return psi, grad
 
 
@@ -442,7 +565,7 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
         raise ValueError("fan: u must be a 2-D tensor (E, 2N)")
     E = u.shape[0]
     dev = u.device
-    sd = _MODELS[model][2]
+    sd = _MODELS[model][1]
     if len(weights) != 6:
         raise ValueError("fan: weights must have 6 entries")
     _check("u", u, (E, 2 * n_horiz), dev)
@@ -472,12 +595,10 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     if not 1 <= substeps <= KERNEL_MAX_SUBSTEPS:
         raise ValueError(f"fan: the kernel takes 1 <= substeps <= "
                          f"{KERNEL_MAX_SUBSTEPS}, got {substeps}")
-    al_floats = sd + 2 * m if al is not None else 0
-    if 6 * cltab.shape[0] + len(KERNEL_PARAM_FIELDS) + al_floats \
+    if model != "pacejka" and 6 * cltab.shape[0] + len(KERNEL_PARAM_FIELDS) \
             > KERNEL_SMEM_FLOATS:
-        raise ValueError("fan: the centerline table and the constraint "
-                         "bounds do not fit the kernel's 48 KB of shared "
-                         "memory")
+        raise ValueError("fan: the centerline table does not fit the "
+                         "kernel's 48 KB of shared memory")
 
     psi = torch.empty((E,), dtype=torch.float32, device=dev)
     grad = torch.empty((E, 2 * n_horiz), dtype=torch.float32, device=dev)
@@ -500,11 +621,31 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
             rc = entry(u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
                        pvec.data_ptr(), psi.data_ptr(), grad.data_ptr(),
                        *common, stream)
+        if rc != 0 and model == "pacejka":
+            # a shape the phased kernel's shared memory cannot hold raises
+            # ValueError here; anything else is a launch failure
+            phased_plan(E, n_horiz, cltab.shape[0], al is not None)
     if rc != 0:
         raise RuntimeError(f"fan: CUDA kernel launch failed with "
                            f"cudaError {rc}")
     wrapper.launches += 1
     return psi, grad
+
+
+def phased_plan(E: int, n_horiz: int, n_cl: int, al: bool) -> tuple:
+    """``(lanes per block, shared-memory bytes)`` of the phased kernel (K1,
+    or K3 with ``al``) for E lanes on the current CUDA device, as its
+    launcher picks them; ValueError if the shape does not fit the device's
+    shared memory even at one lane per block."""
+    from mpc_tpu_torch.kernels.build import load_fused_psi
+    lanes, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = load_fused_psi().mpc_fused_psi_fan_plan(
+        int(al), E, n_horiz, n_cl, ctypes.byref(lanes), ctypes.byref(smem))
+    if rc != 0:
+        raise ValueError(f"fan: N={n_horiz} with a {n_cl}-row centerline "
+                         f"table does not fit the kernel's shared memory "
+                         f"(cudaError {rc})")
+    return lanes.value, smem.value
 
 
 def fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor, cltab: torch.Tensor,

@@ -42,7 +42,7 @@ def test_closed_loop_matches_jax():
     tctrl = tmpc.build_vehicle_controller(
         n_horiz=n_horiz, alm_cfg=tconfig.AlmConfig(eps=eps),
         panoc_cfg=tconfig.PanocConfig(lbfgs_memory=n_horiz,
-                                      max_iter=max_iter))
+                                      max_iter=max_iter), device="cpu")
     cl = straight_centerline(100)
     y0 = initial_states(B, 1)
     f_d = discretize(pacejka_dynamics)

@@ -1,6 +1,6 @@
 """On-card tests of the port's CUDA kernels (mpc_tpu_torch/csrc/fused_psi.cu:
-K1, the Pacejka fan; K2, the kinematic fan; K3, the augmented-Lagrangian
-fan).
+K1, the Pacejka fan, and K3, the augmented-Lagrangian fan, both instances of
+the phased kernel; K2, the kinematic fan).
 
 They need an NVIDIA GPU and nvcc and skip without them. This module imports
 neither jax nor the JAX package, so it also runs where jax is not installed:
@@ -264,11 +264,12 @@ def test_variant_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="is on"):
         fp.kin_fan_value_and_grad(u, y4.cpu(), cltab, pvec, 70, 4, 0.0125,
                                   1.0)
-    # the bounds of K3 and a long road overflow the kernel's shared memory
+    # a road too long for the card's shared memory even at one lane per
+    # block (10,000 rows: 240 KB of centerline table alone)
     n = 40
     u, y6 = _variant_inputs(0, 4, n, 6, cuda)
     al = _al_operands(0, 4, n, cuda, (0, 1))
-    long_tab, _ = fp.fan_params(straight_centerline(2000, device=cuda),
+    long_tab, _ = fp.fan_params(straight_centerline(10000, device=cuda),
                                 VehicleParams())
     with pytest.raises(ValueError, match="shared"):
         fp.al_fan_value_and_grad(u, y6, long_tab, pvec, *al, n, 4, 0.0125,
@@ -324,3 +325,75 @@ def test_variant_controller_step_on_card_matches_cpu(cuda, variant):
                                r_cpu.result.psi.numpy(), rtol=2e-2, atol=1e-4)
     np.testing.assert_allclose(r_gpu.u0.cpu().numpy(), r_cpu.u0.numpy(),
                                rtol=0, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# The phased kernel (K1, K3): lanes per block, ragged blocks, shared memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,E", [
+    ("K1", 1), ("K1", 37), ("K1", 5120), ("K1", 4229), ("K3", 1),
+    ("K3", 37), ("K3", 1280), ("K3", 1059)])
+def test_phased_kernel_matches_plain_version(cuda, kernel, E):
+    # At the paths' shapes (K1 N=12, K3 N=40), at E=1 and 37 (one lane per
+    # block, so that the grid covers the SMs), and at E=4229 and 1059, whose
+    # last block of 32 or 8 lanes holds only 5 or 3, on drawn in-box inputs.
+    al_kernel = kernel == "K3"
+    n_horiz = 40 if al_kernel else 12
+    u, y0 = _variant_inputs(E + 7, E, n_horiz, 6, cuda)
+    road = _lane_change_road(cuda) if al_kernel \
+        else circle_centerline(100, device=cuda)
+    cltab, pvec = fp.fan_params(road, VehicleParams())
+    args = (n_horiz, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
+    lanes, smem = fp.phased_plan(E, n_horiz, cltab.shape[0], al_kernel)
+    print(f"{kernel} E={E}: {lanes} lanes per block, {smem} B of shared "
+          f"memory")
+    if E in (4229, 1059):
+        assert E % lanes != 0, (E, lanes)
+    if al_kernel:
+        al = _al_operands(E, E, n_horiz, cuda, (-1, 3))
+        wrapper = fp.al_fan_value_and_grad
+        run = lambda: wrapper(u, y0, cltab, pvec, *al, *args)  # noqa: E731
+    else:
+        al, wrapper = None, fp.fan_value_and_grad
+        run = lambda: wrapper(u, y0, cltab, pvec, *args)       # noqa: E731
+    r = _check_variant(f"{kernel} E={E}", wrapper, run, u, y0, cltab, pvec,
+                       args, "pacejka", al, 0.01 if E > 100 else 0.0)
+    assert r["max_abs_err_psi"] == 0.0, r
+
+
+@pytest.mark.cuda
+def test_phased_kernel_opts_in_to_large_shared_memory(cuda):
+    # The paths' shapes need more than the default 48 KB of shared memory
+    # per block, and give a grid of at least one block per SM.
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for E, n_horiz, al_kernel in ((5120, 12, False), (1280, 40, True)):
+        lanes, smem = fp.phased_plan(E, n_horiz, 99, al_kernel)
+        assert smem > 48 * 1024 and -(-E // lanes) >= n_sm, (E, lanes, smem)
+    u, y0 = _variant_inputs(3, 1280, 40, 6, cuda)
+    al = _al_operands(3, 1280, 40, cuda, (3, 9))
+    cltab, pvec = fp.fan_params(_lane_change_road(cuda), VehicleParams())
+    before = fp.al_fan_value_and_grad.launches
+    psi, grad = fp.al_fan_value_and_grad(u, y0, cltab, pvec, *al, 40, 4,
+                                         0.0125, 1.0)
+    torch.cuda.synchronize()
+    assert fp.al_fan_value_and_grad.launches == before + 1
+    psi_r, _ = fp.fan_value_and_grad_reference(
+        u, y0, cltab, pvec, 40, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS,
+        al=al)
+    assert torch.equal(psi, psi_r)
+    assert bool(torch.isfinite(grad).all())
+
+
+@pytest.mark.cuda
+def test_phased_kernel_refuses_an_oversize_shape(cuda):
+    u, y0 = _variant_inputs(0, 64, 12, 6, cuda)
+    long_tab, pvec = fp.fan_params(straight_centerline(10000, device=cuda),
+                                   VehicleParams())
+    before = fp.fan_value_and_grad.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fp.phased_plan(64, 12, long_tab.shape[0], False)
+    with pytest.raises(ValueError, match="shared memory"):
+        fp.fan_value_and_grad(u, y0, long_tab, pvec, 12, 4, 0.0125, 1.0)
+    assert fp.fan_value_and_grad.launches == before

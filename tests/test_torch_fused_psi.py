@@ -127,8 +127,9 @@ def test_plain_fan_matches_pallas_interpret_minimal():
 
 @pytest.mark.parametrize("road", ["straight", "circle"])
 def test_adjoint_transcription_matches_autograd(road):
-    # The algorithm of csrc/fused_psi.cu, in batched torch, against the
-    # plain version's autograd gradient.
+    # The algorithm of K1's kernel (fused_psi_fan_phased in
+    # csrc/fused_psi.cu), in batched torch, against the plain version's
+    # autograd gradient.
     n_horiz, E = 6, 9
     cl = _road(road)
     cands, y0 = _inputs(5, E, 1, n_horiz)
@@ -137,7 +138,7 @@ def test_adjoint_transcription_matches_autograd(road):
     cltab, pvec = tfp.fan_params(torch.as_tensor(np.array(cl)), p)
     args = (cltab, pvec, n_horiz, 4, 0.0125, 1.0, DEFAULT_VEHICLE_WEIGHTS)
     psi_ref, grad_ref = tfp.fan_value_and_grad_reference(u, y0t, *args)
-    psi, grad = tfp._fan_adjoint_transcription(u, y0t, *args)
+    psi, grad = tfp._fan_phased_transcription(u, y0t, *args)
     np.testing.assert_allclose(psi.numpy(), psi_ref.numpy(), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_allclose(grad.numpy(), grad_ref.numpy(), rtol=2e-5,
@@ -193,7 +194,7 @@ def _out_of_box(seed, E, n_horiz):
 
 @pytest.mark.parametrize("road", ["straight", "circle"])
 def test_fan_check_passes_the_kernel_algorithm_out_of_box(road):
-    # The kernel's algorithm (the adjoint transcription) through the check
+    # The kernel's algorithm (the phased transcription) through the check
     # chip_smoke.py and the on-card tests apply: lanes beyond the bar occur
     # far outside the box, and each is one the plain f32 version cannot
     # evaluate to the bar either.
@@ -203,7 +204,7 @@ def test_fan_check_passes_the_kernel_algorithm_out_of_box(road):
     cltab, pvec = tfp.fan_params(torch.as_tensor(np.array(_road(road))),
                                  TVehicleParams())
     args = (n_horiz, 4, 0.0125, 1.0, DEFAULT_VEHICLE_WEIGHTS)
-    psi, grad = tfp._fan_adjoint_transcription(u, y0, cltab, pvec, *args)
+    psi, grad = tfp._fan_phased_transcription(u, y0, cltab, pvec, *args)
     r = compare_fan(psi, grad, u, y0, cltab, pvec, *args, PSI_TOL, GRAD_TOL,
                     chunk=256)
     assert r["lanes"] == E and r["failed"] == 0, r

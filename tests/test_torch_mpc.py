@@ -43,7 +43,7 @@ def _controllers(n_horiz, eps, max_iter):
     tctrl = tmpc.build_vehicle_controller(
         n_horiz=n_horiz, alm_cfg=tconfig.AlmConfig(eps=eps),
         panoc_cfg=tconfig.PanocConfig(lbfgs_memory=n_horiz,
-                                      max_iter=max_iter))
+                                      max_iter=max_iter), device="cpu")
     return jctrl, tctrl
 
 
@@ -97,7 +97,7 @@ def test_unported_options_raise():
     import pytest
     for kw in ({"window": 20}, {"obstacle_weight": 1.0}):
         with pytest.raises(NotImplementedError):
-            tmpc.build_vehicle_ocp(n_horiz=4, **kw)
+            tmpc.build_vehicle_ocp(n_horiz=4, device="cpu", **kw)
 
 
 def _port_modules():
@@ -148,7 +148,7 @@ def test_vehicle_ocp_always_evaluates_the_fan():
     # The controller's only path: the PANOC candidate fan through
     # fan_value_and_grad (the kernel on a CUDA device).
     import pytest
-    problem = tmpc.build_vehicle_ocp(n_horiz=4)
+    problem = tmpc.build_vehicle_ocp(n_horiz=4, device="cpu")
     assert problem.cost_multi is not None and problem.param_prep is not None
     with pytest.raises(ValueError):
-        tmpc.build_vehicle_ocp(n_horiz=4, model="unicycle")
+        tmpc.build_vehicle_ocp(n_horiz=4, model="unicycle", device="cpu")

@@ -43,7 +43,7 @@ def test_config1_cold_and_warm_steps_match_jax(max_iter):
     tctrl = tmpc.build_vehicle_controller(
         n_horiz=n_horiz, model="simplified", alm_cfg=tconfig.AlmConfig(eps=eps),
         panoc_cfg=tconfig.PanocConfig(lbfgs_memory=n_horiz,
-                                      max_iter=max_iter))
+                                      max_iter=max_iter), device="cpu")
     assert tctrl.problem.m == 0 and tctrl.problem.al_multi is None
     cl = straight_centerline(100)
     tcl = centerline_from_numpy(np.array(cl))

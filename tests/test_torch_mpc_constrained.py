@@ -59,7 +59,8 @@ def _controllers():
     tctrl = tmpc.build_vehicle_controller(
         n_horiz=N_HORIZ, bound_state_constraints=True,
         alm_cfg=tconfig.AlmConfig(**ALM),
-        panoc_cfg=tconfig.PanocConfig(lbfgs_memory=N_HORIZ, max_iter=150))
+        panoc_cfg=tconfig.PanocConfig(lbfgs_memory=N_HORIZ, max_iter=150),
+        device="cpu")
     return jctrl, jstep, tctrl
 
 
