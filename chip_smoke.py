@@ -1,16 +1,18 @@
 """Smoke test of the PyTorch/CUDA port (mpc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timing
 
 It drives the port's three paths, each through its own fan kernel of
-csrc/fused_psi.cu: the headline (Pacejka, N=12; K1), config 1 (the
-kinematic bicycle, N=20; K2) and ss_n40 (bounded state constraints through
-the ALM general path, N=40; K3). Phases, each of which fails the run with a
-nonzero exit:
+csrc/fused_psi.cu, all three instances of one phased kernel: the headline
+(Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2) and ss_n40
+(bounded state constraints through the ALM general path, N=40; K3). Phases,
+each of which fails the run with a nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the fan kernels (csrc/fused_psi.cu) from this checkout;
+2. build: compiles the fan kernels (csrc/fused_psi.cu) from this checkout
+   and prints nvcc's registers, stack frame and spills of each instance;
 3. kernel checks, for each kernel of the table ``KERNELS`` against its
    plain PyTorch version on the card (``mpc_tpu_torch.kernels.check``; psi
    rtol 2e-5 / atol 1e-6, grad rtol 2e-4 / atol 2e-5 per entry, for K3 plus
@@ -34,13 +36,14 @@ nonzero exit:
    such lanes are counted, and must be under 1% of a check's lanes;
 4. timing: each kernel and its plain version on the first captured fan of
    each shape, in turns (plain, kernel, plain, kernel). The kernel's time is
-   CUDA events around 200 back-to-back launches, over the count; the plain
-   version's the median of 50 (K1), 10 (K2) or 5 (K3) calls, each between
-   its own events. Beside them: the kernel's single-lane latency (E=1 on
+   CUDA events around the replay of one CUDA graph of 200 launches, over
+   the count (see ``launch_ms``); the plain version's the median of 50
+   (K1), 10 (K2) or 5 (K3) calls, each between its own events. Beside them: the kernel's single-lane latency (E=1 on
    drawn inputs, at N and at N/2) and its serial chain, N times the slope
    of the single-lane time over N (see ``serial_chain``); and its bound,
    the larger of the bytes it must move over 3.35 TB/s and the operations
-   it must do over 67 TFLOP/s (see ``fan_bound``);
+   it must do over 67 TFLOP/s (see ``fan_bound``; beside it the former
+   count, which charged the per-stage constants to every evaluation);
 5. the three paths, each through ``mpc_tpu_torch.bench`` with every launch
    count set to 0 just before it and read just after: the headline at batch
    1024 (5 warm-up, 20 timed steps, then the batch-1 loop over 50 steps),
@@ -53,6 +56,13 @@ nonzero exit:
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
+
+With --timing it runs phases 1, 2 and 4 only, times each kernel alone (no
+plain version) and prints {"timing": [...]} as its last line, not the ok
+line: copied over a checkout of another commit, it times that commit's
+kernels the same way, so that two commits can be compared in one session
+on one card (run them in turns: the first, the second, the second, the
+first).
 """
 
 import json
@@ -237,19 +247,26 @@ def median_ms(fn, n=50, warmup=3):
 
 
 def launch_ms(fn, n=200, warmup=3):
-    """Device time per call of ``fn``: CUDA events around ``n`` calls
-    launched back to back, over ``n``. Unlike events around each call, this
-    does not count the host wrapper's time between launches, as long as the
-    host stays ahead of the card."""
+    """Device time per call of ``fn``: ``n`` calls captured into one CUDA
+    graph, whose replay is timed by CUDA events, over ``n``. The replay
+    issues the launches back to back from the card's side, so the time does
+    not count the host wrapper's work between launches, which on a slow
+    host takes longer than a kernel at E=1 (launched from the host, the
+    loop would time the host there)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()      # the first replay uploads the graph
+    torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(n):
-        fn()
+    graph.replay()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
@@ -257,17 +274,21 @@ def launch_ms(fn, n=200, warmup=3):
 
 def time_pair(tag, kernel, plain, n_plain, info):
     """Kernel and plain version in turns (plain, kernel, plain, kernel);
-    returns the smaller time of each: the kernel's per launch over 200
-    back-to-back launches, the plain version's median of ``n_plain``."""
-    ms_plain = median_ms(plain, n=n_plain, warmup=1)
-    ms_kernel = launch_ms(kernel)
-    ms_plain2 = median_ms(plain, n=n_plain, warmup=1)
-    ms_kernel2 = launch_ms(kernel)
-    print(f"timing {tag}: kernel {ms_kernel:.4f} / {ms_kernel2:.4f} ms "
-          f"(200 back-to-back launches), plain {ms_plain:.4f} / "
-          f"{ms_plain2:.4f} ms (median of {n_plain}); CUDA events; "
-          f"{info['nvidia_smi']}")
-    return min(ms_kernel, ms_kernel2), min(ms_plain, ms_plain2)
+    returns the smaller time of each: the kernel's per launch over a CUDA
+    graph of 200 launches, the plain version's median of ``n_plain``. With
+    ``plain`` None, the kernel alone twice, and None for the plain time."""
+    ks, ps = [], []
+    for _ in range(2):
+        if plain is not None:
+            ps.append(median_ms(plain, n=n_plain, warmup=1))
+        ks.append(launch_ms(kernel))
+    line = (f"timing {tag}: kernel {ks[0]:.4f} / {ks[1]:.4f} ms (a CUDA "
+            f"graph of 200 launches)")
+    if ps:
+        line += (f", plain {ps[0]:.4f} / {ps[1]:.4f} ms (median of "
+                 f"{n_plain})")
+    print(f"{line}; CUDA events; {info['nvidia_smi']}")
+    return min(ks), min(ps) if ps else None
 
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
@@ -277,8 +298,26 @@ PEAK_BYTES_PER_S = 3.35e12
 #: Operations of a fan lane, counted from csrc/fused_psi.cu. Rule: each add,
 #: subtract, multiply, compare and select counts 1, and so does each
 #: transcendental function (atan2f, atanf, sinf, cosf, tanf), square root and
-#: division, though each takes many instructions: the bound is a floor.
-ODE_OPS = {"pacejka": 53, "simplified": 15}  # one evaluation of f(x, d, delta)
+#: division, though each takes many instructions: the bound is a floor. A
+#: term that depends only on a stage's inputs (d, delta) and the parameters
+#: is counted once per stage (STAGE_OPS), the rest once per evaluation of
+#: f(x, d, delta) (ODE_OPS):
+#: - Pacejka, per evaluation 53: a1, a2 (2 + 2), the slip angles (atan2 and
+#:   a subtraction; atan2), sign(vx) (2 compares, a subtraction), frx (8),
+#:   the two B alpha (2), their atan (2), ffy and fry (3 + 3), cos and sin
+#:   phi (2), k0 and k1 (3 + 3), k3 and k4 (6 + 6), k5 (5); per stage 2:
+#:   cos and sin delta;
+#: - kinematic, per evaluation 8: phi + beta, its cos and sin, v cos and
+#:   v sin (2), v (sin beta / lr), fr v and acc d - fr v; per stage 6:
+#:   tan delta, lf tan delta, beta = atan2(., lf + lr), sin beta,
+#:   sin beta / lr, acc d.
+ODE_OPS = {"pacejka": 53, "simplified": 8}
+STAGE_OPS = {"pacejka": 2, "simplified": 6}
+#: The former count: nothing per stage, the kinematic model's per-stage
+#: terms (and lf + lr) charged to each of its 16 evaluations per stage, and
+#: Pacejka's cos and sin delta left out. Its bound is printed beside the
+#: bound so that earlier records stay comparable.
+FORMER_ODE_OPS = {"pacejka": 53, "simplified": 15}
 RK4_OPS = 13        # per state component and RK4 step: 3 stage points x 2,
                     # then k1 + 2 k2 + 2 k3 + k4 (5), times h/6, plus x
 COST_OPS = 45       # one stage cost at its selected centerline points
@@ -286,22 +325,34 @@ ARGMIN_OPS = 6      # per centerline row: 2 differences, 2 squares, sum, compare
 AL_OPS = 11         # one constraint's penalty 0.5 sigma (zeta - clip(zeta))^2
 
 
-def fan_bound(model, al, E, n_horiz, substeps, n_cl, operands, outputs):
-    """``(bound_ms, bound_by, bytes, operations)`` of one fan call: the
-    larger of the bytes it must move (each operand read once, each output
-    written once) over the memory rate and the operations it must do over
-    the float32 rate. The forward pass is counted by the rule above; the
-    gradient as one more pass over the same operations without the argmin
-    (its index is held constant), the least a reverse sweep does."""
+def fan_ops(model, al, E, n_horiz, substeps, n_cl, ode_ops=None,
+            stage_ops=None):
+    """The operations of one fan call, counted by the rule above: the
+    forward pass, and the gradient as one more pass over the same operations
+    without the argmin (its index is held constant), the least a reverse
+    sweep does."""
     sd = 6 if model == "pacejka" else 4
-    step = 4 * ODE_OPS[model] + RK4_OPS * sd
-    stage = substeps * step + COST_OPS + (sd * AL_OPS if al else 0)
-    ops = E * n_horiz * (2 * stage + ARGMIN_OPS * n_cl)
+    step = 4 * (ode_ops or ODE_OPS)[model] + RK4_OPS * sd
+    stage = ((stage_ops or STAGE_OPS)[model] + substeps * step + COST_OPS
+             + (sd * AL_OPS if al else 0))
+    return E * n_horiz * (2 * stage + ARGMIN_OPS * n_cl)
+
+
+def fan_bound(model, al, E, n_horiz, substeps, n_cl, operands, outputs):
+    """``(bound_ms, bound_by, bytes, operations, former_bound_ms)`` of one
+    fan call: the larger of the bytes it must move (each operand read once,
+    each output written once) over the memory rate and the operations it
+    must do (``fan_ops``) over the float32 rate; and the same bound under the
+    former count (``FORMER_ODE_OPS``, nothing per stage)."""
+    shape = (model, al, E, n_horiz, substeps, n_cl)
+    ops = fan_ops(*shape)
+    former_ops = fan_ops(*shape, FORMER_ODE_OPS, dict.fromkeys(STAGE_OPS, 0))
     nbytes = sum(t.numel() * t.element_size() for t in operands + outputs)
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", nbytes, ops)
+            else "bytes", nbytes, ops,
+            max(former_ops / PEAK_F32_FLOPS * 1e3, t_bytes))
 
 
 def serial_chain(k, wrapper, fp, info):
@@ -309,8 +360,8 @@ def serial_chain(k, wrapper, fp, info):
     chain: at E=1 the grid is one block, whose per-stage parallel work fits
     its threads in one round for any N here, so the time grows with N only
     by the serial chain; N times the slope of the single-lane time between
-    N/2 and N is that chain's time at N (for K1 and K3 the rollout and the
-    adjoint recursion, for K2 the forward and the reverse sweep)."""
+    N/2 and N is that chain's time at N (the rollout and the adjoint
+    recursion)."""
     from mpc_tpu_torch.models.params import VehicleParams
     road = k.drawn[0][1]
     times = {}
@@ -324,7 +375,7 @@ def serial_chain(k, wrapper, fp, info):
     (n1, t1), (n2, t2) = sorted(times.items())
     chain = n2 * (t2 - t1) / (n2 - n1)
     print(f"single lane {k.label}: {t1:.4f} ms at N={n1}, {t2:.4f} ms at "
-          f"N={n2} (200 back-to-back launches); serial chain at N={n2} "
+          f"N={n2} (a CUDA graph of 200 launches); serial chain at N={n2} "
           f"{chain:.4f} ms; {info['nvidia_smi']}")
     return t2, chain
 
@@ -419,19 +470,22 @@ def split(k, args):
     return u, y0, cltab, pvec, None, tuple(args[4:])
 
 
-def kernel_phase(k, fp, bench, info):
+def kernel_phase(k, fp, bench, info, timing=False):
     """Phases 3 and 4 for one kernel: its drawn and captured checks, then
-    the timing of kernel and plain version at the path's fan shapes.
-    Returns ``(lanes, excused, max_abs_err, max_rel_err, lane_term, ms,
-    plain_ms, bound_ms, bound_by, single_lane_ms, serial_chain_ms)``, the
-    times and the bound at the candidate-fan shape."""
+    the timing of kernel and plain version at the path's fan shapes (with
+    ``timing``, no checks and the kernel alone). Returns a dict: the checks'
+    ``lanes``, ``excused``, ``max_abs_err``, ``max_rel_err`` and
+    ``lane_term_needed``; ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``bound_by`` at the candidate-fan shape; ``ms_by_E``;
+    ``single_lane_ms`` and ``serial_chain_ms``."""
     import torch
     from mpc_tpu_torch.models.params import VehicleParams
     wrapper = getattr(fp, k.wrapper)
     fan_args = (k.n_horiz, SUBSTEPS, TS / SUBSTEPS, 1.0,
                 fp.DEFAULT_VEHICLE_WEIGHTS)
     reports = []
-    for i, (E, road, p_kw, log_sigma) in enumerate(k.drawn):
+    for i, (E, road, p_kw, log_sigma) in enumerate(() if timing
+                                                   else k.drawn):
         u, y0, cl = drawn_inputs(E, k.n_horiz, k.sd, road, seed=k.seed + i)
         cltab, pvec = fp.fan_params(cl, VehicleParams(**p_kw))
         al = drawn_al(E, k.n_horiz, log_sigma, seed=k.seed + 100 + i) \
@@ -457,48 +511,60 @@ def kernel_phase(k, fp, bench, info):
     if sorted(by_E) != sorted(k.shapes):
         fail(f"{cell.name} gave its fan shapes {sorted(by_E)}, not "
              f"{sorted(k.shapes)}")
-    calls = [c for v in by_E.values()
-             for c in (spread(v, k.cap) if k.cap else v)]
-    for E, n, psi, grad, u, y0, cltab, pvec, fa, al in check_captured(
-            wrapper, calls, lambda args: split(k, args)):
-        reports.append(check(f"{k.label} {cell.name} E={E} ({n} calls)", psi,
-                             grad, u, y0, cltab, pvec, fa, model=k.model,
-                             al=al))
-    lanes = sum(r["lanes"] for r in reports)
-    excused = sum(r["excused"] for r in reports)
-    err = max(r["max_abs_err_within_bar"] for r in reports)
-    rel = max(r["max_rel_err_within_bar"] for r in reports)
-    need = max(r["lane_term_needed"] for r in reports)
-    print(f"kernel check {k.label}: {lanes} lanes, {excused} ill-conditioned "
-          f"lanes excused, max err over the rest {err:.3e} abs, {rel:.3e} of "
-          f"the lane's scale, lane term needed {need:.3e}")
+    out = {}
+    if not timing:
+        calls = [c for v in by_E.values()
+                 for c in (spread(v, k.cap) if k.cap else v)]
+        for E, n, psi, grad, u, y0, cltab, pvec, fa, al in check_captured(
+                wrapper, calls, lambda args: split(k, args)):
+            reports.append(check(f"{k.label} {cell.name} E={E} ({n} calls)",
+                                 psi, grad, u, y0, cltab, pvec, fa,
+                                 model=k.model, al=al))
+        out = dict(
+            lanes=sum(r["lanes"] for r in reports),
+            excused=sum(r["excused"] for r in reports),
+            max_abs_err=max(r["max_abs_err_within_bar"] for r in reports),
+            max_rel_err=max(r["max_rel_err_within_bar"] for r in reports),
+            lane_term_needed=max(r["lane_term_needed"] for r in reports))
+        print(f"kernel check {k.label}: {out['lanes']} lanes, "
+              f"{out['excused']} ill-conditioned lanes excused, max err over "
+              f"the rest {out['max_abs_err']:.3e} abs, "
+              f"{out['max_rel_err']:.3e} of the lane's scale, lane term "
+              f"needed {out['lane_term_needed']:.3e}")
 
-    times = []
+    out["ms_by_E"] = {}
     for E in k.shapes:
         args = by_E[E][0][1]
         u, y0, cltab, pvec, al, fa = split(k, args)
         ms, plain_ms = time_pair(
             f"{k.label} E={E}", lambda: wrapper(*args),
+            None if timing else
             lambda: fp.fan_value_and_grad_reference(u, y0, cltab, pvec, *fa,
                                                     model=k.model, al=al),
             k.n_plain, info)
         psi, grad = wrapper(*args)
-        bound_ms, bound_by, nbytes, ops = fan_bound(
+        bound_ms, bound_by, nbytes, ops, former_ms = fan_bound(
             k.model, k.al, E, k.n_horiz, SUBSTEPS, cltab.shape[0],
             [u, y0, cltab, pvec, *(al or ())], [psi, grad])
         print(f"bound {k.label} E={E}: {nbytes} bytes, {ops} operations -> "
               f"{bound_ms:.5f} ms ({bound_by}); kernel at "
-              f"{bound_ms / ms:.2%} of it")
-        times.append((ms, plain_ms, bound_ms, bound_by))
-    single_ms, chain_ms = serial_chain(k, wrapper, fp, info)
-    return (lanes, excused, err, rel, need) + times[0] + (single_ms,
-                                                           chain_ms)
+              f"{bound_ms / ms:.2%} of it; former count {former_ms:.5f} ms")
+        out["ms_by_E"][E] = ms
+        if E == k.shapes[0]:
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+    out["single_lane_ms"], out["serial_chain_ms"] = serial_chain(
+        k, wrapper, fp, info)
+    return out
 
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "mpc_tpu_torch")):
         fail("mpc_tpu_torch/ is not beside chip_smoke.py: run it from a "
              "checkout of the repository")
+    timing = sys.argv[1:] == ["--timing"]
+    if sys.argv[1:] and not timing:
+        fail(f"unknown arguments {sys.argv[1:]}: the one option is --timing")
     sys.path.insert(0, HERE)
     import torch
 
@@ -522,13 +588,21 @@ def main():
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(b['path'], HERE)}")
     for line in b["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             print(f"  nvcc: {line.strip()}")
 
     # ---- 3, 4. kernel checks and timing -----------------------------------
     from mpc_tpu_torch.ops import fused_psi as fp
-    measured = [kernel_phase(k, fp, bench, info) for k in KERNELS]
+    measured = [kernel_phase(k, fp, bench, info, timing) for k in KERNELS]
     print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
+    if timing:
+        print(json.dumps({"timing": [
+            {"name": k.name, "ms_by_E": m["ms_by_E"],
+             "single_lane_ms": m["single_lane_ms"],
+             "serial_chain_ms": m["serial_chain_ms"]}
+            for k, m in zip(KERNELS, measured)]}))
+        return
 
     # ---- 5. the three paths -----------------------------------------------
     launches = [drive(getattr(bench, k.cell), getattr(fp, k.wrapper), fp,
@@ -536,20 +610,21 @@ def main():
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
-    for k, n, (lanes, excused, err, rel, need, ms, plain_ms, bound_ms,
-               bound_by, single_ms, chain_ms) in zip(KERNELS, launches,
-                                                     measured):
+    for k, n, m in zip(KERNELS, launches, measured):
         # no single PyTorch call computes the fan (rollout, argmin, stage
         # cost and adjoint), so there is no library time
         rows.append({
             "name": k.name, "variant": k.variant, "route": "cuda",
             "source": "mpc_tpu_torch/csrc/fused_psi.cu",
             "replaces": "mpc_tpu/ops/fused_psi.py:321",
-            "launches": n, "max_abs_err": err, "max_rel_err": rel,
-            "lane_term_needed": need, "lanes_checked": lanes,
-            "lanes_excused": excused, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "single_lane_ms": single_ms, "serial_chain_ms": chain_ms})
+            "launches": n, "max_abs_err": m["max_abs_err"],
+            "max_rel_err": m["max_rel_err"],
+            "lane_term_needed": m["lane_term_needed"],
+            "lanes_checked": m["lanes"], "lanes_excused": m["excused"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "single_lane_ms": m["single_lane_ms"],
+            "serial_chain_ms": m["serial_chain_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

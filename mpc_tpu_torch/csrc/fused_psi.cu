@@ -2,53 +2,51 @@
 // N-stage tracking cost at E independent evaluation lanes.
 //
 // Replaces: mpc_tpu/ops/fused_psi.py:_eval_pallas (the TPU Pallas kernel) in
-// its three variants:
+// its three variants, all instances of the phased kernel
+// fused_psi_fan_phased<model, AL>:
 //   K1  model="pacejka", no augmented-Lagrangian term   (mpc_fused_psi_fan)
 //   K2  model="simplified", the kinematic bicycle        (mpc_fused_psi_fan_kin)
 //   K3  model="pacejka" with the AL term of the bounded  (mpc_fused_psi_fan_al)
 //       state constraints, reached through make_vehicle_al_multi
-// K1 and K3 are instances of the phased kernel fused_psi_fan_phased, K2 of
-// the one-thread-per-lane kernel fused_psi_fan_kernel. Same mathematics as
-// the plain PyTorch version mpc_tpu_torch/ops/fused_psi.py:
-// fan_value_and_grad_reference; the phased kernel's algorithm is the batched
-// transcription _fan_phased_transcription, the other's
-// _fan_adjoint_transcription, both held against autograd on the CPU.
+// Same mathematics as the plain PyTorch version mpc_tpu_torch/ops/
+// fused_psi.py:fan_value_and_grad_reference; the algorithm is the batched
+// transcription _fan_phased_transcription, held against autograd on the CPU.
 //
 // What bounds it on an H100: latency, not bytes or operations. Each lane
 // reads 2N + sd floats (and, for K3, 2 sd N multipliers and penalties) and
 // writes 2N + 1; its work is a few hundred thousand operations, most of them
-// in atan2f, atanf, sinf and cosf. But a lane's forward rollout is a chain of
+// in transcendental functions. But a lane's forward rollout is a chain of
 // N x substeps x 4 dependent ODE evaluations, and the few thousand lanes of
 // the main path fill only a few warps per SM. There is no data reuse across
 // lanes apart from the centerline table, the parameters and K3's constraint
 // bounds, and no matrix product, so tensor cores are irrelevant.
 //
-// What the phased design does about it (K1, K3). One block holds L lanes
-// (L picked by the launcher so that the grid has at least one block per SM)
-// and PH_THREADS threads, and runs three phases, with everything a phase
-// hands on in dynamic shared memory:
+// What the phased design does about it. One block holds L lanes (L picked
+// by the launcher so that the grid has at least one block per SM) and
+// PH_THREADS threads, and runs three phases, with everything a phase hands
+// on in dynamic shared memory:
 // 1. one thread per lane rolls out the states and stores the N + 1 stage
 //    boundary states, nothing else: this is the only chain that is serial
-//    by nature. cos and sin of the stage's steering are computed once per
-//    stage instead of in each of its 4 x substeps evaluations;
+//    by nature. The model's per-stage constants (M::Stage: cos and sin of
+//    the steering for Pacejka; the slip angle beta, its sine, cosine and
+//    d beta / d delta for the kinematic model) are computed once per stage
+//    instead of in each of its 4 x substeps evaluations;
 // 2. all threads of the block, over the block's (lane, stage) pairs, each
 //    independent given the stored states: from the stage's end state the
 //    nearest centerline point, the stage cost, its state gradient and, for
 //    K3, the penalties and their gradient sigma r 2 x_i; from its start
 //    state the stage recomputed with its Jacobian in forward mode: the
-//    derivatives of the end state along 6 columns, the start state's phi,
-//    vx, vy, omega (px and py move the end state one for one and enter
-//    nothing else) and the inputs d, delta. Each evaluation point's
-//    transcendental terms are computed once and applied to all 6 columns;
+//    derivatives of the end state along sd columns, the start state's
+//    components 2 .. sd-1 (Pacejka phi, vx, vy, omega; kinematic phi, v;
+//    px and py move the end state one for one and enter nothing else) and
+//    the inputs d, delta. Each evaluation point's transcendental terms are
+//    computed once (M::point) and applied to all sd columns (M::tangent);
 // 3. one thread per lane sums psi in the plain version's order and runs the
 //    adjoint, a short linear recursion: with v = lam + g_k,
 //    grad_k = B_k^T v + (2 c5 d_k, 2 c4 delta_k) and lam = A_k^T v, from
 //    k = N-1 down to 0. The gradient goes out through shared memory in one
 //    coalesced pass.
 // Above 48 KB of shared memory the launcher opts in to the card's limit.
-// K2 keeps the one-thread-per-lane kernel (forward sweep, then a reverse
-// sweep that recomputes each stage and pulls the adjoint back through it),
-// with its stage-start states in per-thread local memory.
 //
 // Numerics: native atan2f/atanf/tanf/sinf/cosf (no --use_fast_math). Every
 // state and every psi term is evaluated in the plain version's operation
@@ -75,9 +73,7 @@
 #include <stddef.h>
 
 #define MAX_N 64        // horizon limit (ops/fused_psi.py KERNEL_MAX_HORIZON)
-#define MAX_SUB 8       // RK4 substeps limit (KERNEL_MAX_SUBSTEPS)
 #define N_PARAMS 24     // VehicleParams.to_kernel_vec length
-#define BLOCK 32        // K2: threads (= lanes) per block
 #define PH_THREADS 128  // phased kernel: threads per block
 #define PH_MAX_LANES 32 // phased kernel: most lanes per block
 
@@ -147,18 +143,30 @@ __device__ __forceinline__ float wrap_to_pi(float a) {
 struct Pacejka {
     static constexpr int SD = 6;
 
+    // The stage's constants: cos, sin of its steering delta. Mirrors
+    // _pacejka_stage.
+    struct Stage {
+        float cd, sd;
+    };
+
+    static __device__ __forceinline__ Stage stage(float dl, const Par&) {
+        return {cosf(dl), sinf(dl)};
+    }
+
     // The ODE at one evaluation point, k = f(x, d, delta), and the partial
-    // derivatives its tangents need: of ffy (vx, vy, omega, delta), fry (vx,
-    // vy, omega) and frx (vx, d). cd, sd = cos, sin(delta) of the stage.
+    // derivatives its tangents need beside the stage's constants: of ffy
+    // (vx, vy, omega, delta), fry (vx, vy, omega) and frx (vx, d). Mirrors
+    // _pacejka_point.
     struct Point {
         float k[6];
-        float cphi, sphi, vx, vy, om, cd, sd, ffy;
+        float cphi, sphi, vx, vy, om, ffy;
         float f_vx, f_vy, f_om, f_dl, r_vx, r_vy, r_om, x_vx, x_d;
     };
 
     static __device__ __forceinline__ void point(const float x[6], float d,
-                                                 float dl, float cd, float sd,
+                                                 float dl, const Stage& st,
                                                  const Par& p, Point& q) {
+        const float cd = st.cd, sd = st.sd;
         const float phi = x[2], vx = x[3], vy = x[4], om = x[5];
         const float a1 = om * p.lf + vy;
         const float a2 = om * p.lr - vy;
@@ -183,8 +191,6 @@ struct Pacejka {
         q.vx = vx;
         q.vy = vy;
         q.om = om;
-        q.cd = cd;
-        q.sd = sd;
         q.ffy = ffy;
         q.f_dl = p.df * cosf(p.cf * ta_f) * p.cf * p.bf / (1.f + bfa * bfa);
         const float s1 = q.f_dl / (vx * vx + a1 * a1);
@@ -201,21 +207,22 @@ struct Pacejka {
     }
 
     static __device__ __forceinline__ void deriv(const float x[6], float d,
-                                                 float dl, float cd, float sd,
+                                                 float dl, const Stage& st,
                                                  const Par& p, float k[6]) {
         Point q;
-        point(x, d, dl, cd, sd, p, q);
+        point(x, d, dl, st, p, q);
 #pragma unroll
         for (int i = 0; i < 6; ++i) k[i] = q.k[i];
     }
 
-    // dk = derivative of k at q along tangent column j: t = d (phi, vx, vy,
-    // omega) of the point; column 4 also moves d by 1, column 5 delta by 1.
-    // t[i] enters only where bit i of mask is set: a stage's start tangents
-    // are unit and zero columns, and a known 0 must not multiply a
-    // coefficient that is 0/0 at a standstill (vx = vy = omega = 0).
-    // Mirrors _pacejka_tangent.
+    // dk = derivative of k at q, a point of the stage with constants st,
+    // along tangent column j: t = d (phi, vx, vy, omega) of the point;
+    // column 4 also moves d by 1, column 5 delta by 1. t[i] enters only
+    // where bit i of mask is set: a stage's start tangents are unit and zero
+    // columns, and a known 0 must not multiply a coefficient that is 0/0 at
+    // a standstill (vx = vy = omega = 0). Mirrors _pacejka_tangent.
     static __device__ __forceinline__ void tangent(const Point& q,
+                                                   const Stage& st,
                                                    const Par& p,
                                                    const float t[4], int j,
                                                    int mask, float dk[6]) {
@@ -250,13 +257,13 @@ struct Pacejka {
         if (j == 5) tffy += q.f_dl;
         // k3 = (frx - ffy sd + m vy om) / m, k4 = (fry + ffy cd - m vx om) / m,
         // k5 = (ffy lf cd - fry lr) / iz
-        float n3 = fmaf(-q.sd, tffy, tfrx);
-        float n4 = fmaf(q.cd, tffy, tfry);
-        float n5 = fmaf(p.lf * q.cd, tffy, -p.lr * tfry);
+        float n3 = fmaf(-st.sd, tffy, tfrx);
+        float n4 = fmaf(st.cd, tffy, tfry);
+        float n5 = fmaf(p.lf * st.cd, tffy, -p.lr * tfry);
         if (j == 5) {
-            n3 = fmaf(-q.ffy, q.cd, n3);
-            n4 = fmaf(-q.ffy, q.sd, n4);
-            n5 = fmaf(-p.lf * q.ffy, q.sd, n5);
+            n3 = fmaf(-q.ffy, st.cd, n3);
+            n4 = fmaf(-q.ffy, st.sd, n4);
+            n5 = fmaf(-p.lf * q.ffy, st.sd, n5);
         }
         dk[0] = a0;
         dk[1] = a1;
@@ -284,38 +291,92 @@ struct Pacejka {
 struct Kinematic {
     static constexpr int SD = 4;
 
-    // beta = atan2(lf tan(delta), lf + lr); k = f(x, d, delta)
-    static __device__ __forceinline__ void deriv(const float x[4], float d,
-                                                 float dl, const Par& p,
-                                                 float k[4]) {
-        const float phi = x[2], v = x[3];
-        const float beta = atan2f(p.lf * tanf(dl), p.lf + p.lr);
-        k[0] = v * cosf(phi + beta);
-        k[1] = v * sinf(phi + beta);
-        k[2] = v * sinf(beta) / p.lr;
-        k[3] = p.acc * d - p.fr * v;
-    }
+    // The stage's constants: the slip angle beta = atan2(lf tan(delta),
+    // lf + lr), its sine and cosine, and (lf + lr > 0) its derivative
+    //   db = d beta / d delta
+    //      = lf (lf + lr) (1 + tan^2 delta) / ((lf + lr)^2 + lf^2 tan^2 delta).
+    // beta and sin(beta) are the plain version's values, computed once per
+    // stage instead of in every evaluation. Mirrors _kinematic_stage.
+    struct Stage {
+        float beta, sb, cb, db;
+    };
 
-    // Mirrors _kinematic_vjp: d beta / d delta
-    //   = lf (lf + lr) (1 + tan^2 delta) / ((lf + lr)^2 + lf^2 tan^2 delta).
-    static __device__ __forceinline__ void deriv_vjp(const float x[4], float d,
-                                                     float dl, const Par& p,
-                                                     const float mu[4],
-                                                     float g[4], float& gd,
-                                                     float& gdl) {
-        const float phi = x[2], v = x[3];
+    static __device__ __forceinline__ Stage stage(float dl, const Par& p) {
         const float ll = p.lf + p.lr;
         const float t = tanf(dl);
         const float ty = p.lf * t;
-        const float beta = atan2f(ty, ll);
-        const float c_pb = cosf(phi + beta), s_pb = sinf(phi + beta);
-        const float c_b = cosf(beta), s_b = sinf(beta);
-        const float g_pb = -mu[0] * v * s_pb + mu[1] * v * c_pb;
-        g[2] += g_pb;
-        g[3] += mu[0] * c_pb + mu[1] * s_pb + mu[2] * s_b / p.lr - mu[3] * p.fr;
-        const float g_beta = g_pb + mu[2] * v * c_b / p.lr;
-        gd += mu[3] * p.acc;
-        gdl += g_beta * (ll / (ll * ll + ty * ty)) * p.lf * (1.f + t * t);
+        Stage st;
+        st.beta = atan2f(ty, ll);
+        st.sb = sinf(st.beta);
+        st.cb = cosf(st.beta);
+        st.db = ll / (ll * ll + ty * ty) * p.lf * (1.f + t * t);
+        return st;
+    }
+
+    // The ODE at one evaluation point, k = f(x, d, delta), in the plain
+    // version's operation order, and the terms its tangents need beside the
+    // stage's constants. Mirrors _kinematic_point.
+    struct Point {
+        float k[4];
+        float cpb, spb, v;
+    };
+
+    static __device__ __forceinline__ void point(const float x[4], float d,
+                                                 float dl, const Stage& st,
+                                                 const Par& p, Point& q) {
+        const float v = x[3];
+        const float pb = x[2] + st.beta;
+        q.cpb = cosf(pb);
+        q.spb = sinf(pb);
+        q.k[0] = v * q.cpb;
+        q.k[1] = v * q.spb;
+        q.k[2] = v * st.sb / p.lr;
+        q.k[3] = p.acc * d - p.fr * v;
+        q.v = v;
+    }
+
+    static __device__ __forceinline__ void deriv(const float x[4], float d,
+                                                 float dl, const Stage& st,
+                                                 const Par& p, float k[4]) {
+        Point q;
+        point(x, d, dl, st, p, q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) k[i] = q.k[i];
+    }
+
+    // dk = derivative of k at q, a point of the stage with constants st,
+    // along tangent column j: t = d (phi, v) of the point; column 2 also
+    // moves d by 1, column 3 delta by 1 and with it beta by db. t[i] enters
+    // only where bit i of mask is set, as in Pacejka::tangent. With
+    // pb = phi + beta:
+    //   dk0 = cos(pb) t_v - v sin(pb) (t_phi + db),
+    //   dk1 = sin(pb) t_v + v cos(pb) (t_phi + db),
+    //   dk2 = (sin(beta) t_v + v cos(beta) db) / lr,   dk3 = -fr t_v + acc,
+    // where db enters only column 3 and acc only column 2. Mirrors
+    // _kinematic_tangent.
+    static __device__ __forceinline__ void tangent(const Point& q,
+                                                   const Stage& st,
+                                                   const Par& p,
+                                                   const float t[2], int j,
+                                                   int mask, float dk[4]) {
+        float tpb = (mask & 1) ? t[0] : 0.f;   // of the angle pb
+        float n2 = 0.f, n3 = 0.f;
+        if (j == 3) {
+            tpb += st.db;
+            n2 = q.v * st.cb * st.db;
+        }
+        float a0 = -q.k[1] * tpb, a1 = q.k[0] * tpb;
+        if (mask & 2) {
+            a0 = fmaf(q.cpb, t[1], a0);
+            a1 = fmaf(q.spb, t[1], a1);
+            n2 = fmaf(st.sb, t[1], n2);
+            n3 = -p.fr * t[1];
+        }
+        if (j == 2) n3 += p.acc;
+        dk[0] = a0;
+        dk[1] = a1;
+        dk[2] = n2 / p.lr;
+        dk[3] = n3;
     }
 
     static __device__ __forceinline__ float speed(const float x[4]) {
@@ -330,42 +391,22 @@ struct Kinematic {
     }
 };
 
-// One classical RK4 step in place (K2).
+// One classical RK4 step in place, with the stage's constants given.
 template <class M>
 __device__ __forceinline__ void rk4_step(float x[M::SD], float d, float dl,
+                                         const typename M::Stage& st,
                                          const Par& p, const Cfg& c) {
     float k1[M::SD], k2[M::SD], k3[M::SD], k4[M::SD], t[M::SD];
-    M::deriv(x, d, dl, p, k1);
+    M::deriv(x, d, dl, st, p, k1);
 #pragma unroll
     for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.hh * k1[i];
-    M::deriv(t, d, dl, p, k2);
+    M::deriv(t, d, dl, st, p, k2);
 #pragma unroll
     for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.hh * k2[i];
-    M::deriv(t, d, dl, p, k3);
+    M::deriv(t, d, dl, st, p, k3);
 #pragma unroll
     for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.h * k3[i];
-    M::deriv(t, d, dl, p, k4);
-#pragma unroll
-    for (int i = 0; i < M::SD; ++i)
-        x[i] = x[i] + c.h6 * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]);
-}
-
-// The same step with the stage's cos, sin(delta) given (K1, K3).
-template <class M>
-__device__ __forceinline__ void rk4_step_cs(float x[M::SD], float d, float dl,
-                                            float cd, float sd, const Par& p,
-                                            const Cfg& c) {
-    float k1[M::SD], k2[M::SD], k3[M::SD], k4[M::SD], t[M::SD];
-    M::deriv(x, d, dl, cd, sd, p, k1);
-#pragma unroll
-    for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.hh * k1[i];
-    M::deriv(t, d, dl, cd, sd, p, k2);
-#pragma unroll
-    for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.hh * k2[i];
-    M::deriv(t, d, dl, cd, sd, p, k3);
-#pragma unroll
-    for (int i = 0; i < M::SD; ++i) t[i] = x[i] + c.h * k3[i];
-    M::deriv(t, d, dl, cd, sd, p, k4);
+    M::deriv(t, d, dl, st, p, k4);
 #pragma unroll
     for (int i = 0; i < M::SD; ++i)
         x[i] = x[i] + c.h6 * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]);
@@ -389,12 +430,11 @@ __device__ __forceinline__ int nearest(float px, float py, const float* cl,
 }
 
 // Stage cost at the state after the stage; row = [nx, ny, pvx, pvy, nxx, nxy].
-// With g != nullptr, also g += dL/dx, gd += dL/dd, gdl += dL/ddelta.
+// Also g += dL/dx (the inputs' terms 2 c5 d, 2 c4 delta are phase 3's).
 template <class M>
 __device__ __forceinline__ float stage_cost(const float x[M::SD], float d,
                                             float dl, const float* row,
-                                            const Cfg& c, float* g, float* gd,
-                                            float* gdl) {
+                                            const Cfg& c, float g[M::SD]) {
     const float px = x[0], py = x[1], phi = x[2];
     const float nx = row[0], ny = row[1], pvx = row[2], pvy = row[3];
     const float nxx = row[4], nxy = row[5];
@@ -404,16 +444,12 @@ __device__ __forceinline__ float stage_cost(const float x[M::SD], float d,
     const float pe = (px - nx) * (nxy - ny) - (py - ny) * (nxx - nx);
     const float speed = M::speed(x);
     const float sv = speed - c.v_ref;
-    if (g != nullptr) {
-        const float c_cte = 2.f * c.w[1] * cte;
-        const float c_pe = 2.f * c.w[2] * pe;
-        g[0] += c_cte * (ny - pvy) + c_pe * (nxy - ny);
-        g[1] += -c_cte * (nx - pvx) - c_pe * (nxx - nx);
-        g[2] += -2.f * c.w[3] * he;
-        M::speed_grad(x, c.w[0], sv, speed, g);
-        *gd += 2.f * c.w[5] * d;
-        *gdl += 2.f * c.w[4] * dl;
-    }
+    const float c_cte = 2.f * c.w[1] * cte;
+    const float c_pe = 2.f * c.w[2] * pe;
+    g[0] += c_cte * (ny - pvy) + c_pe * (nxy - ny);
+    g[1] += -c_cte * (nx - pvx) - c_pe * (nxx - nx);
+    g[2] += -2.f * c.w[3] * he;
+    M::speed_grad(x, c.w[0], sv, speed, g);
     // each square rounded before its weight, as c[i] * t ** 2 in torch
     return c.w[0] * (sv * sv) + c.w[1] * (cte * cte) + c.w[2] * (pe * pe)
         + c.w[3] * (he * he) + c.w[4] * (dl * dl) + c.w[5] * (d * d);
@@ -430,123 +466,7 @@ __device__ __forceinline__ float al_residual(float xi, float off, float lam,
 }
 
 // ---------------------------------------------------------------------------
-// K2: one thread per lane
-// ---------------------------------------------------------------------------
-
-template <class M>
-__global__ void __launch_bounds__(BLOCK)
-fused_psi_fan_kernel(const float* __restrict__ u, const float* __restrict__ y0,
-                     const float* __restrict__ cltab,
-                     const float* __restrict__ pvec, float* __restrict__ psi,
-                     float* __restrict__ grad, int E, Cfg c) {
-    constexpr int SD = M::SD;
-    extern __shared__ float smem[];
-    float* s_cl = smem;                   // n_cl * 6
-    float* s_p = s_cl + c.n_cl * 6;       // N_PARAMS
-    for (int i = threadIdx.x; i < c.n_cl * 6; i += blockDim.x) s_cl[i] = cltab[i];
-    for (int i = threadIdx.x; i < N_PARAMS; i += blockDim.x) s_p[i] = pvec[i];
-    __syncthreads();
-
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= E) return;
-    const Par p = load_par(s_p);
-    const int n = 2 * c.n_horiz;
-    const float* ue = u + (size_t)e * n;
-    float* ge = grad + (size_t)e * n;
-
-    // ---- forward sweep: stage-start states, argmin indices, psi ----------
-    float starts[MAX_N][SD];
-    int idx[MAX_N];
-    float x[SD];
-#pragma unroll
-    for (int i = 0; i < SD; ++i) x[i] = y0[(size_t)e * SD + i];
-    float tot = 0.f;
-    for (int k = 0; k < c.n_horiz; ++k) {
-        const float d = ue[2 * k], dl = ue[2 * k + 1];
-#pragma unroll
-        for (int i = 0; i < SD; ++i) starts[k][i] = x[i];
-        for (int s = 0; s < c.substeps; ++s) rk4_step<M>(x, d, dl, p, c);
-        const int j = nearest(x[0], x[1], s_cl, c.n_cl);
-        idx[k] = j;
-        tot += stage_cost<M>(x, d, dl, s_cl + 6 * j, c, nullptr, nullptr, nullptr);
-    }
-    psi[e] = tot;
-
-    // ---- reverse sweep -----------------------------------------------------
-    float adj[SD];
-#pragma unroll
-    for (int i = 0; i < SD; ++i) adj[i] = 0.f;
-    for (int k = c.n_horiz - 1; k >= 0; --k) {
-        const float d = ue[2 * k], dl = ue[2 * k + 1];
-        // recompute the stage, keeping the 4 evaluation points of each substep
-        float pts[MAX_SUB][4][SD];
-        float xs[SD];
-#pragma unroll
-        for (int i = 0; i < SD; ++i) xs[i] = starts[k][i];
-        for (int s = 0; s < c.substeps; ++s) {
-            float k1[SD], k2[SD], k3[SD], k4[SD];
-#pragma unroll
-            for (int i = 0; i < SD; ++i) pts[s][0][i] = xs[i];
-            M::deriv(xs, d, dl, p, k1);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) pts[s][1][i] = xs[i] + c.hh * k1[i];
-            M::deriv(pts[s][1], d, dl, p, k2);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) pts[s][2][i] = xs[i] + c.hh * k2[i];
-            M::deriv(pts[s][2], d, dl, p, k3);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) pts[s][3][i] = xs[i] + c.h * k3[i];
-            M::deriv(pts[s][3], d, dl, p, k4);
-#pragma unroll
-            for (int i = 0; i < SD; ++i)
-                xs[i] = xs[i] + c.h6 * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]);
-        }
-        float gd = 0.f, gdl = 0.f;
-        stage_cost<M>(xs, d, dl, s_cl + 6 * idx[k], c, adj, &gd, &gdl);
-
-        for (int s = c.substeps - 1; s >= 0; --s) {
-            // x_out = x + h/6 (k1 + 2 k2 + 2 k3 + k4), k_i = f(point_i)
-            float lk1[SD], lk2[SD], lk3[SD], lk4[SD], lx[SD], gx[SD];
-#pragma unroll
-            for (int i = 0; i < SD; ++i) {
-                lk1[i] = c.h6 * adj[i];
-                lk4[i] = lk1[i];
-                lk2[i] = 2.f * lk1[i];
-                lk3[i] = lk2[i];
-                lx[i] = adj[i];
-            }
-            // k4 = f(x4), x4 = x + h k3
-#pragma unroll
-            for (int i = 0; i < SD; ++i) gx[i] = 0.f;
-            M::deriv_vjp(pts[s][3], d, dl, p, lk4, gx, gd, gdl);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) { lx[i] += gx[i]; lk3[i] += c.h * gx[i]; }
-            // k3 = f(x3), x3 = x + h/2 k2
-#pragma unroll
-            for (int i = 0; i < SD; ++i) gx[i] = 0.f;
-            M::deriv_vjp(pts[s][2], d, dl, p, lk3, gx, gd, gdl);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) { lx[i] += gx[i]; lk2[i] += c.hh * gx[i]; }
-            // k2 = f(x2), x2 = x + h/2 k1
-#pragma unroll
-            for (int i = 0; i < SD; ++i) gx[i] = 0.f;
-            M::deriv_vjp(pts[s][1], d, dl, p, lk2, gx, gd, gdl);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) { lx[i] += gx[i]; lk1[i] += c.hh * gx[i]; }
-            // k1 = f(x)
-#pragma unroll
-            for (int i = 0; i < SD; ++i) gx[i] = 0.f;
-            M::deriv_vjp(pts[s][0], d, dl, p, lk1, gx, gd, gdl);
-#pragma unroll
-            for (int i = 0; i < SD; ++i) adj[i] = lx[i] + gx[i];
-        }
-        ge[2 * k] = gd;
-        ge[2 * k + 1] = gdl;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K1, K3: the phased kernel
+// The phased kernel (K1, K2, K3)
 // ---------------------------------------------------------------------------
 
 // Offsets (in floats) of one block's dynamic shared memory. A (lane, stage)
@@ -589,7 +509,7 @@ __device__ __forceinline__ void stage_jacobian(const float xs[M::SD], float d,
                                                const Cfg& c,
                                                float T[M::SD][M::SD]) {
     constexpr int SD = M::SD, NX = SD - 2;
-    const float cd = cosf(dl), sd = sinf(dl);
+    const typename M::Stage st = M::stage(dl, p);
     float x[SD];
 #pragma unroll
     for (int i = 0; i < SD; ++i) x[i] = xs[i];
@@ -608,7 +528,7 @@ __device__ __forceinline__ void stage_jacobian(const float xs[M::SD], float d,
 #pragma unroll
         for (int ev = 0; ev < 4; ++ev) {
             typename M::Point q;
-            M::point(xa, d, dl, cd, sd, p, q);
+            M::point(xa, d, dl, st, p, q);
             const float w = (ev == 1 || ev == 2) ? 2.f : 1.f;
             const float cn = ev == 2 ? c.h : c.hh;
             const bool start = ev == 0 && s == 0;
@@ -616,9 +536,9 @@ __device__ __forceinline__ void stage_jacobian(const float xs[M::SD], float d,
             for (int j = 0; j < SD; ++j) {
                 float dk[SD];
                 if (start)
-                    M::tangent(q, p, P[j], j, j < NX ? 1 << j : 0, dk);
+                    M::tangent(q, st, p, P[j], j, j < NX ? 1 << j : 0, dk);
                 else
-                    M::tangent(q, p, P[j], j, (1 << NX) - 1, dk);
+                    M::tangent(q, st, p, P[j], j, (1 << NX) - 1, dk);
 #pragma unroll
                 for (int r = 0; r < SD; ++r)
                     S[j][r] = ev == 0 ? dk[r] : fmaf(w, dk[r], S[j][r]);
@@ -700,8 +620,8 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
         for (int i = 0; i < SD; ++i) xo[i * LX] = x[i];
         for (int k = 0; k < N; ++k) {
             const float d = ul[2 * k], dl = ul[2 * k + 1];
-            const float cd = cosf(dl), sd = sinf(dl);
-            for (int s = 0; s < c.substeps; ++s) rk4_step_cs<M>(x, d, dl, cd, sd, p, c);
+            const typename M::Stage st = M::stage(dl, p);
+            for (int s = 0; s < c.substeps; ++s) rk4_step<M>(x, d, dl, st, p, c);
 #pragma unroll
             for (int i = 0; i < SD; ++i) xo[i * LX + k + 1] = x[i];
         }
@@ -722,9 +642,8 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
             g[i] = 0.f;
         }
         // the stage cost and its gradient at the end state
-        float gd = 0.f, gdl = 0.f;   // unused: phase 3 adds 2 c5 d, 2 c4 delta
         const int j = nearest(xe[0], xe[1], s_cl, c.n_cl);
-        s_cost[pi] = stage_cost<M>(xe, d, dl, s_cl + 6 * j, c, g, &gd, &gdl);
+        s_cost[pi] = stage_cost<M>(xe, d, dl, s_cl + 6 * j, c, g);
         if (AL) {
             // the penalties 0.5 sigma r^2, each rounded as the plain version
             // rounds it; d/dx_i = sigma r 2 x_i
@@ -820,24 +739,7 @@ static Cfg make_cfg(int n_horiz, int n_cl, int substeps, double h, float v_ref,
 
 static bool valid_shape(int E, int n_horiz, int n_cl, int substeps) {
     return E > 0 && n_horiz >= 1 && n_horiz <= MAX_N && substeps >= 1 &&
-           substeps <= MAX_SUB && n_cl >= 1;
-}
-
-// K2
-template <class M>
-static int launch(const float* u, const float* y0, const float* cltab,
-                  const float* pvec, float* psi, float* grad, int E,
-                  int n_horiz, int n_cl, int substeps, double h, float v_ref,
-                  float w0, float w1, float w2, float w3, float w4, float w5,
-                  void* stream) {
-    if (!valid_shape(E, n_horiz, n_cl, substeps)) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(n_cl * 6 + N_PARAMS) * sizeof(float);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    const Cfg c = make_cfg(n_horiz, n_cl, substeps, h, v_ref, w0, w1, w2, w3, w4, w5);
-    const int grid = (E + BLOCK - 1) / BLOCK;
-    fused_psi_fan_kernel<M><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        u, y0, cltab, pvec, psi, grad, E, c);
-    return (int)cudaGetLastError();
+           n_cl >= 1;
 }
 
 // The phased kernel's lanes per block and shared memory for a shape on the
@@ -867,7 +769,6 @@ static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int* lanes,
     return (int)cudaErrorInvalidValue;
 }
 
-// K1, K3
 template <class M, bool AL>
 static int launch_phased(const float* u, const float* y0, const float* cltab,
                          const float* pvec, const float* lam, const float* sig,
@@ -920,9 +821,11 @@ int mpc_fused_psi_fan_kin(const float* u, const float* y0, const float* cltab,
                           int n_horiz, int n_cl, int substeps, double h,
                           float v_ref, float w0, float w1, float w2, float w3,
                           float w4, float w5, void* stream) {
-    return launch<Kinematic>(u, y0, cltab, pvec, psi, grad, E, n_horiz, n_cl,
-                             substeps, h, v_ref, w0, w1, w2, w3, w4, w5,
-                             stream);
+    return launch_phased<Kinematic, false>(u, y0, cltab, pvec, nullptr, nullptr,
+                                           nullptr, nullptr, nullptr, psi,
+                                           grad, E, n_horiz, n_cl, substeps, h,
+                                           v_ref, w0, w1, w2, w3, w4, w5,
+                                           stream);
 }
 
 // K3: Pacejka with the augmented-Lagrangian penalty, sd = 6.
@@ -939,13 +842,15 @@ int mpc_fused_psi_fan_al(const float* u, const float* y0, const float* cltab,
                                         w5, stream);
 }
 
-// The phased kernel's (K1: al = 0, K3: al = 1) lanes per block and shared
-// memory bytes for E lanes on the current device; cudaErrorInvalidValue if
-// the shape does not fit even at one lane per block.
-int mpc_fused_psi_fan_plan(int al, int E, int n_horiz, int n_cl, int* lanes,
-                           int* smem_bytes) {
+// The phased kernel's lanes per block and shared memory bytes for E lanes
+// of the model of state dimension sd (K1: sd = 6, al = 0; K2: sd = 4,
+// al = 0; K3: sd = 6, al = 1) on the current device; cudaErrorInvalidValue
+// for another sd or if the shape does not fit even at one lane per block.
+int mpc_fused_psi_fan_plan(int sd, int al, int E, int n_horiz, int n_cl,
+                           int* lanes, int* smem_bytes) {
+    if (sd != Pacejka::SD && sd != Kinematic::SD) return (int)cudaErrorInvalidValue;
     size_t smem = 0;
-    const int rc = ph_plan(Pacejka::SD, al != 0, E, n_horiz, n_cl, lanes, &smem);
+    const int rc = ph_plan(sd, al != 0, E, n_horiz, n_cl, lanes, &smem);
     *smem_bytes = (int)smem;
     return rc;
 }

@@ -76,8 +76,8 @@ def build(name: str) -> dict:
 def load_fused_psi() -> ctypes.CDLL:
     """The fan kernels' library (``csrc/fused_psi.cu``: K1
     ``mpc_fused_psi_fan``, K2 ``mpc_fused_psi_fan_kin``, K3
-    ``mpc_fused_psi_fan_al``, and the phased kernel's
-    ``mpc_fused_psi_fan_plan``), built on first use."""
+    ``mpc_fused_psi_fan_al``, all three instances of the phased kernel, and
+    its ``mpc_fused_psi_fan_plan``), built on first use."""
     with _lock:
         lib = _loaded.get("fused_psi")
         if lib is None:
@@ -92,9 +92,10 @@ def load_fused_psi() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
                 fn.restype = ctypes.c_int
-            # al, E, n_horiz, n_cl -> lanes per block, shared-memory bytes
+            # sd, al, E, n_horiz, n_cl -> lanes per block, shared-memory
+            # bytes
             lib.mpc_fused_psi_fan_plan.argtypes = (
-                [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
+                [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2)
             lib.mpc_fused_psi_fan_plan.restype = ctypes.c_int
             _loaded["fused_psi"] = lib
         return lib

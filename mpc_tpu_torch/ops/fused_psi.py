@@ -18,16 +18,15 @@ the tracking stage cost; ``psi[e]``, the sum of stage costs; and
   ``0.5 sigma (zeta - clip(zeta, d_lo, d_up))^2`` with
   ``zeta = x_i^2 - off_i + lam / sigma`` (mpc_tpu/ops/fused_psi.py:243-249).
 
-Four implementations of the same function live here:
+Three implementations of the same function live here:
 
 - :func:`fan_value_and_grad_reference`, the plain PyTorch version
   (structure-of-arrays rollout, gradient by autograd of the lane sum). It is
   the CPU path and the oracle the kernels are held to.
-- :func:`_fan_phased_transcription` (K1, K3) and
-  :func:`_fan_adjoint_transcription` (K2), the algorithms of the two kernels
-  of ``csrc/fused_psi.cu``, transcribed into batched torch so that every
-  partial derivative is checked against autograd on the CPU. Used only by
-  the tests.
+- :func:`_fan_phased_transcription`, the algorithm of the phased kernel of
+  ``csrc/fused_psi.cu`` in its three variants, transcribed into batched
+  torch so that every partial derivative is checked against autograd on the
+  CPU. Used only by the tests.
 - The wrappers :func:`fan_value_and_grad` (K1),
   :func:`kin_fan_value_and_grad` (K2) and :func:`al_fan_value_and_grad`
   (K3): each checks its inputs, runs the plain version for a CPU tensor, and
@@ -49,14 +48,9 @@ from mpc_tpu_torch.models.params import KERNEL_PARAM_FIELDS, VehicleParams
 from mpc_tpu_torch.ops.costs import DEFAULT_VEHICLE_WEIGHTS
 from mpc_tpu_torch.ops.road import wrap_to_pi
 
-#: the kernels' limits on the horizon and the RK4 substeps
-#: (csrc/fused_psi.cu MAX_N/MAX_SUB)
+#: the kernels' limit on the horizon (csrc/fused_psi.cu MAX_N); their
+#: shared memory is limited by the card, which ``phased_plan`` asks
 KERNEL_MAX_HORIZON = 64
-KERNEL_MAX_SUBSTEPS = 8
-#: K2's shared memory (centerline table and parameters) must fit the
-#: default 48 KB; K1's and K3's limit is the card's opt-in limit, which
-#: their launcher checks (``phased_plan``)
-KERNEL_SMEM_FLOATS = 48 * 1024 // 4
 
 
 def make_cltab(centerline: torch.Tensor) -> torch.Tensor:
@@ -236,45 +230,16 @@ def fan_value_and_grad_reference(u: torch.Tensor, y0: torch.Tensor,
     return psi.detach(), grad
 
 
-# ---------------------------------------------------------------------------
-# K2's hand-written adjoint, transcribed line by line into csrc/fused_psi.cu
-# (fused_psi_fan_kernel)
-# ---------------------------------------------------------------------------
-
-def _kinematic_vjp(x, d, delta, p, mu):
-    """Cotangent ``mu`` (4 components) pulled back through the kinematic
-    ODE. ``beta = atan2(lf tan(delta), lf + lr)`` with lf + lr > 0, so
-    ``d beta / d delta = lf (lf + lr) sec^2(delta)
-    / ((lf + lr)^2 + lf^2 tan^2(delta))``, with sec^2 = 1 + tan^2."""
-    px, py, phi, v = x
-    lf, lr = p.axis_front, p.axis_rear
-    ll = lf + lr
-    t = torch.tan(delta)
-    ty = lf * t
-    beta = torch.atan2(ty, ll)
-    c_pb, s_pb = torch.cos(phi + beta), torch.sin(phi + beta)
-    c_b, s_b = torch.cos(beta), torch.sin(beta)
-    # f0 = v cos(phi + b) ; f1 = v sin(phi + b) ; f2 = v sin(b) / lr
-    # f3 = acc d - friction v
-    g_pb = -mu[0] * v * s_pb + mu[1] * v * c_pb
-    g_v = mu[0] * c_pb + mu[1] * s_pb + mu[2] * s_b / lr \
-        - mu[3] * p.friction
-    g_beta = g_pb + mu[2] * v * c_b / lr
-    g_d = mu[3] * p.acceleration
-    g_delta = g_beta * (ll / (ll * ll + ty * ty)) * lf * (1.0 + t * t)
-    zero = torch.zeros_like(px)
-    return (zero, zero, g_pb, g_v), g_d, g_delta
-
-
 #: model -> (ODE, state dimension)
 _MODELS = {"pacejka": (_pacejka_deriv, 6),
            "simplified": (_kinematic_deriv, 4)}
 
 
-def _stage_cost_vjp(x, d, delta, pts, v_ref, c):
-    """Gradient of one stage cost w.r.t. the state after the stage and the
-    stage's inputs, with the selected points held constant. The wrap to
-    [-pi, pi) has derivative 1; ``|v|`` has derivative sign(v), 0 at 0."""
+def _stage_cost_vjp(x, pts, v_ref, c):
+    """Gradient of one stage cost w.r.t. the state after the stage, with the
+    selected points held constant (the inputs' terms ``2 c5 d``,
+    ``2 c4 delta`` are added by the adjoint). The wrap to [-pi, pi) has
+    derivative 1; ``|v|`` has derivative sign(v), 0 at 0."""
     px, py = x[0], x[1]
     nx, ny, pvx, pvy, nxx, nxy = pts
     cte, pos_error, heading_error, speed = _stage_terms(x, pts)
@@ -289,83 +254,11 @@ def _stage_cost_vjp(x, d, delta, pts, v_ref, c):
         g_speed = (gs * x[3], gs * x[4], zero)
     else:
         g_speed = (2.0 * c[0] * (speed - v_ref) * torch.sign(x[3]),)
-    return ((g_px, g_py, g_phi) + g_speed, 2.0 * c[5] * d, 2.0 * c[4] * delta)
-
-
-def _fan_adjoint_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
-                               v_ref, weights):
-    """K2's kernel algorithm (``fused_psi_fan_kernel``, the kinematic
-    bicycle) in batched torch, no autograd.
-
-    Forward sweep: store each stage's start state and argmin index, sum the
-    stage costs. Reverse sweep, stage N-1 down to 0: recompute the stage's
-    RK4 substeps from its start state keeping the four evaluation points of
-    each substep; add the stage cost's state gradient to the adjoint; pull
-    the adjoint back through the substeps in reverse, accumulating the
-    gradients w.r.t. ``d_k`` and ``delta_k``.
-    """
-    deriv, vjp, sd = _kinematic_deriv, _kinematic_vjp, 4
-    p = _Params(pvec)
-    hh, h6 = 0.5 * h, h / 6.0
-    x = tuple(y0[:, i] for i in range(sd))
-    starts, idxs = [], []
-    psi = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
-    for k in range(n_horiz):
-        d, delta = u[:, 2 * k], u[:, 2 * k + 1]
-        starts.append(x)
-        x = _rk4_substeps(deriv, x, d, delta, p, h, substeps)
-        idx = _nearest(x[0], x[1], cltab)
-        idxs.append(idx)
-        psi = psi + _stage_cost(x, d, delta, cltab[idx].unbind(dim=1),
-                                v_ref, weights)
-
-    grad = torch.zeros_like(u)
-    adj = tuple(torch.zeros_like(psi) for _ in range(sd))
-    for k in reversed(range(n_horiz)):
-        d, delta = u[:, 2 * k], u[:, 2 * k + 1]
-        xs = starts[k]
-        points = []
-        for _ in range(substeps):
-            k1 = deriv(xs, d, delta, p)
-            x2 = tuple(a + hh * b for a, b in zip(xs, k1))
-            k2 = deriv(x2, d, delta, p)
-            x3 = tuple(a + hh * b for a, b in zip(xs, k2))
-            k3 = deriv(x3, d, delta, p)
-            x4 = tuple(a + h * b for a, b in zip(xs, k3))
-            k4 = deriv(x4, d, delta, p)
-            points.append((xs, x2, x3, x4))
-            xs = tuple(a + h6 * (b1 + 2 * b2 + 2 * b3 + b4)
-                       for a, b1, b2, b3, b4 in zip(xs, k1, k2, k3, k4))
-        g_x, g_d, g_delta = _stage_cost_vjp(
-            xs, d, delta, cltab[idxs[k]].unbind(dim=1), v_ref, weights)
-        adj = tuple(a + b for a, b in zip(adj, g_x))
-        for xa, x2, x3, x4 in reversed(points):
-            lk1 = tuple(h6 * a for a in adj)
-            lk2 = tuple(2.0 * a for a in lk1)
-            lk3 = lk2
-            lx = adj
-            gx, gd_, gdl = vjp(x4, d, delta, p, lk1)   # k4: weight h/6
-            lx = tuple(a + b for a, b in zip(lx, gx))
-            lk3 = tuple(a + h * b for a, b in zip(lk3, gx))
-            g_d, g_delta = g_d + gd_, g_delta + gdl
-            gx, gd_, gdl = vjp(x3, d, delta, p, lk3)
-            lx = tuple(a + b for a, b in zip(lx, gx))
-            lk2 = tuple(a + hh * b for a, b in zip(lk2, gx))
-            g_d, g_delta = g_d + gd_, g_delta + gdl
-            gx, gd_, gdl = vjp(x2, d, delta, p, lk2)
-            lx = tuple(a + b for a, b in zip(lx, gx))
-            lk1 = tuple(a + hh * b for a, b in zip(lk1, gx))
-            g_d, g_delta = g_d + gd_, g_delta + gdl
-            gx, gd_, gdl = vjp(xa, d, delta, p, lk1)
-            adj = tuple(a + b for a, b in zip(lx, gx))
-            g_d, g_delta = g_d + gd_, g_delta + gdl
-        grad[:, 2 * k] = g_d
-        grad[:, 2 * k + 1] = g_delta
-    return psi, grad
+    return (g_px, g_py, g_phi) + g_speed
 
 
 # ---------------------------------------------------------------------------
-# The phased algorithm of K1 and K3, transcribed line by line into
+# The phased algorithm of K1, K2 and K3, transcribed line by line into
 # csrc/fused_psi.cu (fused_psi_fan_phased)
 # ---------------------------------------------------------------------------
 
@@ -378,12 +271,25 @@ def _lin(*pairs):
     return sum(terms[1:], terms[0]) if terms else 0.0
 
 
-def _pacejka_point(x, d, delta, cos_d, sin_d, p):
+def _plus(a, b):
+    """``a + b`` where ``a`` may be None (0)."""
+    return b if a is None else a + b
+
+
+def _pacejka_stage(delta, p):
+    """The Pacejka ODE's per-stage constants ``(cos(delta), sin(delta))``,
+    computed once for the stage's 4 x substeps evaluations (the same
+    values, so the same bits)."""
+    return torch.cos(delta), torch.sin(delta)
+
+
+def _pacejka_point(x, d, delta, st, p):
     """The Pacejka ODE ``k`` at one evaluation point and the partial
     derivatives its tangents need, each computed once for all of them:
     ``f`` = d ffy / d(vx, vy, omega), ``f_dl`` = d ffy / d delta, ``r`` =
     d fry / d(vx, vy, omega), ``x_vx``, ``x_d`` = d frx / d(vx, d)."""
     px, py, phi, vx, vy, omega = x
+    cos_d, sin_d = st
     a1 = omega * p.axis_front + vy
     a2 = omega * p.axis_rear - vy
     bfa = p.bf * (-torch.atan2(a1, vx) + delta)
@@ -396,20 +302,20 @@ def _pacejka_point(x, d, delta, cos_d, sin_d, p):
     return dict(
         k=_pacejka_deriv_cs(x, d, delta, cos_d, sin_d, p),
         cos_phi=torch.cos(phi), sin_phi=torch.sin(phi), vx=vx, vy=vy,
-        om=omega, cos_d=cos_d, sin_d=sin_d,
-        ffy=p.df * torch.sin(p.cf * ta_f),
+        om=omega, ffy=p.df * torch.sin(p.cf * ta_f),
         f=(s1 * a1, -s1 * vx, -s1 * vx * p.axis_front), f_dl=f_dl,
         r=(-s2 * a2, -s2 * vx, s2 * vx * p.axis_rear),
         x_vx=-p.cm2 * d - 2.0 * p.cr2 * vx, x_d=p.cm1 - p.cm2 * vx)
 
 
-def _pacejka_tangent(q, p, t, j):
-    """Derivative of ``k`` at the point ``q`` along tangent column ``j``:
-    ``t = (t_phi, t_vx, t_vy, t_omega)`` of the point (px, py enter
-    nothing); column 4 also moves d by 1, column 5 delta by 1. For
-    k3 = (frx - ffy sin_d + m vy omega) / m the last term's derivative is
-    vy t_omega + omega t_vy, and so on."""
+def _pacejka_tangent(q, st, p, t, j):
+    """Derivative of ``k`` at the point ``q`` of the stage with constants
+    ``st`` along tangent column ``j``: ``t = (t_phi, t_vx, t_vy, t_omega)``
+    of the point (px, py enter nothing); column 4 also moves d by 1, column
+    5 delta by 1. For k3 = (frx - ffy sin_d + m vy omega) / m the last
+    term's derivative is vy t_omega + omega t_vy, and so on."""
     tphi, tvx, tvy, tom = t
+    cos_d, sin_d = st
     lf, lr = p.axis_front, p.axis_rear
     tffy = _lin(*zip(q["f"], (tvx, tvy, tom)))
     tfry = _lin(*zip(q["r"], (tvx, tvy, tom)))
@@ -418,13 +324,13 @@ def _pacejka_tangent(q, p, t, j):
         tfrx = tfrx + q["x_d"]
     if j == 5:
         tffy = tffy + q["f_dl"]
-    n3 = tfrx - q["sin_d"] * tffy
-    n4 = tfry + q["cos_d"] * tffy
-    n5 = lf * q["cos_d"] * tffy - lr * tfry
+    n3 = tfrx - sin_d * tffy
+    n4 = tfry + cos_d * tffy
+    n5 = lf * cos_d * tffy - lr * tfry
     if j == 5:
-        n3 = n3 - q["ffy"] * q["cos_d"]
-        n4 = n4 - q["ffy"] * q["sin_d"]
-        n5 = n5 - lf * q["ffy"] * q["sin_d"]
+        n3 = n3 - q["ffy"] * cos_d
+        n4 = n4 - q["ffy"] * sin_d
+        n5 = n5 - lf * q["ffy"] * sin_d
     k = q["k"]
     return (_lin((q["cos_phi"], tvx), (-q["sin_phi"], tvy), (-k[1], tphi)),
             _lin((q["sin_phi"], tvx), (q["cos_phi"], tvy), (k[0], tphi)),
@@ -434,52 +340,112 @@ def _pacejka_tangent(q, p, t, j):
             n5 * (1.0 / p.inertia))
 
 
-def _plus(a, b):
-    """``a + b`` where ``a`` may be None (0)."""
-    return b if a is None else a + b
+def _kinematic_stage(delta, p):
+    """The kinematic ODE's per-stage constants ``(beta, sin(beta),
+    cos(beta), beta')``: the slip angle ``beta = atan2(lf tan(delta),
+    lf + lr)``, computed once for the stage's 4 x substeps evaluations as
+    :func:`_kinematic_deriv` computes it in each (the same values, so the
+    same bits), and, with lf + lr > 0, ``beta' = d beta / d delta =
+    lf (lf + lr) (1 + tan^2 delta) / ((lf + lr)^2 + lf^2 tan^2 delta)``."""
+    lf, lr = p.axis_front, p.axis_rear
+    ll = lf + lr
+    t = torch.tan(delta)
+    ty = lf * t
+    beta = torch.atan2(ty, ll)
+    return (beta, torch.sin(beta), torch.cos(beta),
+            ll / (ll * ll + ty * ty) * lf * (1.0 + t * t))
 
 
-def _stage_linearisation(xs, d, delta, p, h, substeps):
+def _kinematic_point(x, d, delta, st, p):
+    """The kinematic ODE ``k`` at one evaluation point, in
+    :func:`_kinematic_deriv`'s operation order, and the terms its tangents
+    need beside the stage's constants."""
+    px, py, phi, v = x
+    beta, sin_b, _, _ = st
+    pb = phi + beta
+    cos_pb, sin_pb = torch.cos(pb), torch.sin(pb)
+    return dict(
+        k=(v * cos_pb, v * sin_pb, v * sin_b / p.axis_rear,
+           p.acceleration * d - p.friction * v),
+        cos_pb=cos_pb, sin_pb=sin_pb, v=v)
+
+
+def _kinematic_tangent(q, st, p, t, j):
+    """Derivative of ``k`` at the point ``q`` of the stage with constants
+    ``st`` along tangent column ``j``: ``t = (t_phi, t_v)`` of the point (px, py enter nothing); column 2 also
+    moves d by 1, column 3 delta by 1 and with it beta by beta'. With
+    pb = phi + beta: dk0 = cos(pb) t_v - v sin(pb) (t_phi + beta'),
+    dk1 = sin(pb) t_v + v cos(pb) (t_phi + beta'),
+    dk2 = (sin(beta) t_v + v cos(beta) beta') / lr, dk3 = -fr t_v + acc,
+    where beta' enters only column 3 and acc only column 2."""
+    tphi, tv = t
+    _, sin_b, cos_b, db = st
+    k = q["k"]
+    tpb = _plus(tphi, db) if j == 3 else tphi    # of the angle pb
+    n2 = _lin((sin_b, tv))
+    if j == 3:
+        n2 = n2 + q["v"] * cos_b * db
+    dk3 = _lin((-p.friction, tv))
+    if j == 2:
+        dk3 = dk3 + p.acceleration
+    return (_lin((q["cos_pb"], tv), (-k[1], tpb)),
+            _lin((q["sin_pb"], tv), (k[0], tpb)),
+            n2 / p.axis_rear, dk3)
+
+
+#: model -> (per-stage constants, evaluation point, tangent): the phased
+#: kernel's model struct (M::stage, M::point, M::tangent)
+_PHASED = {"pacejka": (_pacejka_stage, _pacejka_point, _pacejka_tangent),
+           "simplified": (_kinematic_stage, _kinematic_point,
+                          _kinematic_tangent)}
+
+
+def _stage_linearisation(model, xs, d, delta, p, h, substeps):
     """A stage recomputed from its start state ``xs`` with its Jacobian in
-    forward mode: ``T[j]`` (6 components) is the derivative of the stage's
-    end state along column j: j < 4 the start state's phi, vx, vy, omega, 4
-    the input d, 5 delta. The start state's px and py move the end state one
-    for one and enter nothing else, so they need no column. Each evaluation
-    point's transcendental terms are computed once (:func:`_pacejka_point`)
-    and applied to all six columns."""
+    forward mode: ``T[j]`` (sd components) is the derivative of the stage's
+    end state along column j: j < NX = sd - 2 the start state's component
+    j + 2 (Pacejka phi, vx, vy, omega; kinematic phi, v), NX the input d,
+    NX + 1 delta. The start state's px and py move the end state one for
+    one and enter nothing else, so they need no column. Each evaluation
+    point's transcendental terms are computed once (the model's point
+    function) and applied to all sd columns."""
+    stage, point, tangent = _PHASED[model]
+    sd = len(xs)
     hh, h6 = 0.5 * h, h / 6.0
-    cos_d, sin_d = torch.cos(delta), torch.sin(delta)
+    st = stage(delta, p)
     # the start tangents: unit columns for the state, zero for the inputs
-    T = [tuple(1.0 if r == j + 2 else None for r in range(6))
-         for j in range(6)]
+    T = [tuple(1.0 if r == j + 2 else None for r in range(sd))
+         for j in range(sd)]
     x = xs
     for _ in range(substeps):
         P = [col[2:] for col in T]
-        xa, acc, S = x, None, [None] * 6
+        xa, acc, S = x, None, [None] * sd
         for w, c in ((1.0, hh), (2.0, hh), (2.0, h), (1.0, None)):
-            q = _pacejka_point(xa, d, delta, cos_d, sin_d, p)
-            dks = [_pacejka_tangent(q, p, P[j], j) for j in range(6)]
+            q = point(xa, d, delta, st, p)
+            dks = [tangent(q, st, p, P[j], j) for j in range(sd)]
             acc = q["k"] if acc is None \
                 else tuple(a + w * b for a, b in zip(acc, q["k"]))
             S = [tuple(_plus(s, w * b) for s, b in zip(
-                (None,) * 6 if S[j] is None else S[j], dks[j]))
-                for j in range(6)]
+                (None,) * sd if S[j] is None else S[j], dks[j]))
+                for j in range(sd)]
             if c is not None:
                 xa = tuple(xi + c * ki for xi, ki in zip(x, q["k"]))
-                P = [tuple(_plus(T[j][r], c * dks[j][r]) for r in range(2, 6))
-                     for j in range(6)]
+                P = [tuple(_plus(T[j][r], c * dks[j][r])
+                           for r in range(2, sd)) for j in range(sd)]
         x = tuple(xi + h6 * a for xi, a in zip(x, acc))
         T = [tuple(_plus(t, h6 * s) for t, s in zip(T[j], S[j]))
-             for j in range(6)]
+             for j in range(sd)]
     return T
 
 
 def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
                               v_ref, weights, model="pacejka", al=None):
-    """The phased kernel's algorithm in batched torch, no autograd.
+    """The phased kernel's algorithm in batched torch, no autograd: K1
+    (``model="pacejka"``), K2 (``"simplified"``) and K3 (Pacejka with
+    ``al``).
 
     Phase 1, serial over stages: roll out the states, keeping the N + 1
-    stage boundary states and nothing else (cos and sin of the steering
+    stage boundary states and nothing else (the model's per-stage constants
     computed once per stage). Phase 2, independent per stage: from the
     stored end state the nearest-point index, the stage cost and its state
     gradient, and the AL penalties with their gradient ``sigma r 2 x_i``;
@@ -489,19 +455,21 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
     in the plain version's order (stage cost, then its penalties, stage by
     stage), so it is bit-identical; then from k = N-1 down to 0, with
     ``v = lam + g_k``: ``grad_k = B_k^T v + (2 c5 d_k, 2 c4 delta_k)`` and
-    ``lam = A_k^T v``. Pacejka only (K1, K3).
+    ``lam = A_k^T v``.
     """
-    if model != "pacejka":
-        raise ValueError(f"the phased algorithm is Pacejka's, not {model!r}")
+    if model not in _PHASED:
+        raise ValueError(f"unknown model {model!r}")
+    stage, point, _ = _PHASED[model]
+    sd = _MODELS[model][1]
+    nx = sd - 2
     p = _Params(pvec)
     # phase 1
-    xs = [tuple(y0[:, i] for i in range(6))]
+    xs = [tuple(y0[:, i] for i in range(sd))]
     for k in range(n_horiz):
         d, delta = u[:, 2 * k], u[:, 2 * k + 1]
-        cos_d, sin_d = torch.cos(delta), torch.sin(delta)
+        st = stage(delta, p)
         xs.append(_rk4_substeps(
-            lambda x_, d_, dl_, p_: _pacejka_deriv_cs(x_, d_, dl_, cos_d,
-                                                      sin_d, p_),
+            lambda x_, d_, dl_, p_: point(x_, d_, dl_, st, p_)["k"],
             xs[-1], d, delta, p, h, substeps))
     # phase 2: each stage reads only xs[k] and xs[k + 1]
     costs, pens, gs, Ts = [], [], [], []
@@ -510,7 +478,7 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
         xe = xs[k + 1]
         pts = cltab[_nearest(xe[0], xe[1], cltab)].unbind(dim=1)
         costs.append(_stage_cost(xe, d, delta, pts, v_ref, weights))
-        g, _, _ = _stage_cost_vjp(xe, d, delta, pts, v_ref, weights)
+        g = _stage_cost_vjp(xe, pts, v_ref, weights)
         pen = []
         if al is not None:
             res = list(_al_residuals(xe, k, al))
@@ -519,7 +487,8 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
                       for gi, xi, (s, r) in zip(g, xe, res))
         pens.append(pen)
         gs.append(g)
-        Ts.append(_stage_linearisation(xs[k], d, delta, p, h, substeps))
+        Ts.append(_stage_linearisation(model, xs[k], d, delta, p, h,
+                                       substeps))
     # phase 3
     psi = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
     for cost, pen in zip(costs, pens):
@@ -527,14 +496,14 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
         for term in pen:
             psi = psi + term
     grad = torch.zeros_like(u)
-    lam = (0.0,) * 6
+    lam = (0.0,) * sd
     for k in reversed(range(n_horiz)):
         v = tuple(a + b for a, b in zip(lam, gs[k]))
         T = Ts[k]
-        grad[:, 2 * k] = _lin(*zip(T[4], v)) + 2.0 * weights[5] * u[:, 2 * k]
-        grad[:, 2 * k + 1] = _lin(*zip(T[5], v)) \
+        grad[:, 2 * k] = _lin(*zip(T[nx], v)) + 2.0 * weights[5] * u[:, 2 * k]
+        grad[:, 2 * k + 1] = _lin(*zip(T[nx + 1], v)) \
             + 2.0 * weights[4] * u[:, 2 * k + 1]
-        lam = (v[0], v[1]) + tuple(_lin(*zip(T[j], v)) for j in range(4))
+        lam = (v[0], v[1]) + tuple(_lin(*zip(T[j], v)) for j in range(nx))
     return psi, grad
 
 
@@ -592,13 +561,9 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     if not 1 <= n_horiz <= KERNEL_MAX_HORIZON:
         raise ValueError(f"fan: the kernel takes 1 <= N <= "
                          f"{KERNEL_MAX_HORIZON}, got {n_horiz}")
-    if not 1 <= substeps <= KERNEL_MAX_SUBSTEPS:
-        raise ValueError(f"fan: the kernel takes 1 <= substeps <= "
-                         f"{KERNEL_MAX_SUBSTEPS}, got {substeps}")
-    if model != "pacejka" and 6 * cltab.shape[0] + len(KERNEL_PARAM_FIELDS) \
-            > KERNEL_SMEM_FLOATS:
-        raise ValueError("fan: the centerline table does not fit the "
-                         "kernel's 48 KB of shared memory")
+    if substeps < 1:
+        raise ValueError(f"fan: the kernel takes substeps >= 1, got "
+                         f"{substeps}")
 
     psi = torch.empty((E,), dtype=torch.float32, device=dev)
     grad = torch.empty((E, 2 * n_horiz), dtype=torch.float32, device=dev)
@@ -621,10 +586,10 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
             rc = entry(u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
                        pvec.data_ptr(), psi.data_ptr(), grad.data_ptr(),
                        *common, stream)
-        if rc != 0 and model == "pacejka":
-            # a shape the phased kernel's shared memory cannot hold raises
+        if rc != 0:
+            # a shape the kernel's shared memory cannot hold raises
             # ValueError here; anything else is a launch failure
-            phased_plan(E, n_horiz, cltab.shape[0], al is not None)
+            phased_plan(E, n_horiz, cltab.shape[0], model, al is not None)
     if rc != 0:
         raise RuntimeError(f"fan: CUDA kernel launch failed with "
                            f"cudaError {rc}")
@@ -632,15 +597,18 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     return psi, grad
 
 
-def phased_plan(E: int, n_horiz: int, n_cl: int, al: bool) -> tuple:
-    """``(lanes per block, shared-memory bytes)`` of the phased kernel (K1,
-    or K3 with ``al``) for E lanes on the current CUDA device, as its
-    launcher picks them; ValueError if the shape does not fit the device's
-    shared memory even at one lane per block."""
+def phased_plan(E: int, n_horiz: int, n_cl: int, model: str,
+                al: bool) -> tuple:
+    """``(lanes per block, shared-memory bytes)`` of the phased kernel for
+    ``model`` (K1 ``"pacejka"``, K2 ``"simplified"``, K3 ``"pacejka"`` with
+    ``al``) for E lanes on the current CUDA device, as its launcher picks
+    them; ValueError if the shape does not fit the device's shared memory
+    even at one lane per block."""
     from mpc_tpu_torch.kernels.build import load_fused_psi
     lanes, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = load_fused_psi().mpc_fused_psi_fan_plan(
-        int(al), E, n_horiz, n_cl, ctypes.byref(lanes), ctypes.byref(smem))
+        _MODELS[model][1], int(al), E, n_horiz, n_cl, ctypes.byref(lanes),
+        ctypes.byref(smem))
     if rc != 0:
         raise ValueError(f"fan: N={n_horiz} with a {n_cl}-row centerline "
                          f"table does not fit the kernel's shared memory "

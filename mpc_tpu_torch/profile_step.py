@@ -32,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from mpc_tpu_torch.bench import CELLS, ClosedLoop, gpu_info
 
 N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1}
-FAN_KERNEL = "fused_psi_fan"   # K1, K3: fused_psi_fan_phased; K2: fused_psi_fan_kernel
+FAN_KERNEL = "fused_psi_fan"   # K1-K3: instances of fused_psi_fan_phased
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_DIR = os.path.join(ROOT, "build", "profile")

@@ -1,6 +1,6 @@
 """On-card tests of the port's CUDA kernels (mpc_tpu_torch/csrc/fused_psi.cu:
-K1, the Pacejka fan, and K3, the augmented-Lagrangian fan, both instances of
-the phased kernel; K2, the kinematic fan).
+K1, the Pacejka fan, K2, the kinematic fan, and K3, the augmented-Lagrangian
+fan, all three instances of the phased kernel).
 
 They need an NVIDIA GPU and nvcc and skip without them. This module imports
 neither jax nor the JAX package, so it also runs where jax is not installed:
@@ -328,38 +328,45 @@ def test_variant_controller_step_on_card_matches_cpu(cuda, variant):
 
 
 # ---------------------------------------------------------------------------
-# The phased kernel (K1, K3): lanes per block, ragged blocks, shared memory
+# The phased kernel (K1, K2, K3): lanes per block, ragged blocks, shared
+# memory
 # ---------------------------------------------------------------------------
+
+#: kernel -> (path's horizon, model, state dimension, wrapper)
+PHASED = {"K1": (12, "pacejka", 6, "fan_value_and_grad"),
+          "K2": (20, "simplified", 4, "kin_fan_value_and_grad"),
+          "K3": (40, "pacejka", 6, "al_fan_value_and_grad")}
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,E", [
-    ("K1", 1), ("K1", 37), ("K1", 5120), ("K1", 4229), ("K3", 1),
-    ("K3", 37), ("K3", 1280), ("K3", 1059)])
+    ("K1", 1), ("K1", 37), ("K1", 5120), ("K1", 4229), ("K2", 1),
+    ("K2", 37), ("K2", 5120), ("K2", 4229), ("K3", 1), ("K3", 37),
+    ("K3", 1280), ("K3", 1059)])
 def test_phased_kernel_matches_plain_version(cuda, kernel, E):
-    # At the paths' shapes (K1 N=12, K3 N=40), at E=1 and 37 (one lane per
-    # block, so that the grid covers the SMs), and at E=4229 and 1059, whose
-    # last block of 32 or 8 lanes holds only 5 or 3, on drawn in-box inputs.
+    # At the paths' shapes (K1 N=12, K2 N=20, K3 N=40), at E=1 and 37 (one
+    # lane per block, so that the grid covers the SMs), and at E=4229 and
+    # 1059, whose last block of 32 or 8 lanes holds only 5 or 3, on drawn
+    # in-box inputs.
     al_kernel = kernel == "K3"
-    n_horiz = 40 if al_kernel else 12
-    u, y0 = _variant_inputs(E + 7, E, n_horiz, 6, cuda)
+    n_horiz, model, sd, name = PHASED[kernel]
+    u, y0 = _variant_inputs(E + 7, E, n_horiz, sd, cuda)
     road = _lane_change_road(cuda) if al_kernel \
         else circle_centerline(100, device=cuda)
     cltab, pvec = fp.fan_params(road, VehicleParams())
     args = (n_horiz, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
-    lanes, smem = fp.phased_plan(E, n_horiz, cltab.shape[0], al_kernel)
+    lanes, smem = fp.phased_plan(E, n_horiz, cltab.shape[0], model,
+                                 al_kernel)
     print(f"{kernel} E={E}: {lanes} lanes per block, {smem} B of shared "
           f"memory")
     if E in (4229, 1059):
         assert E % lanes != 0, (E, lanes)
-    if al_kernel:
-        al = _al_operands(E, E, n_horiz, cuda, (-1, 3))
-        wrapper = fp.al_fan_value_and_grad
-        run = lambda: wrapper(u, y0, cltab, pvec, *al, *args)  # noqa: E731
-    else:
-        al, wrapper = None, fp.fan_value_and_grad
-        run = lambda: wrapper(u, y0, cltab, pvec, *args)       # noqa: E731
-    r = _check_variant(f"{kernel} E={E}", wrapper, run, u, y0, cltab, pvec,
-                       args, "pacejka", al, 0.01 if E > 100 else 0.0)
+    wrapper = getattr(fp, name)
+    al = _al_operands(E, E, n_horiz, cuda, (-1, 3)) if al_kernel else ()
+    r = _check_variant(f"{kernel} E={E}", wrapper,
+                       lambda: wrapper(u, y0, cltab, pvec, *al, *args),
+                       u, y0, cltab, pvec, args, model, al or None,
+                       0.01 if E > 100 else 0.0)
     assert r["max_abs_err_psi"] == 0.0, r
 
 
@@ -368,8 +375,9 @@ def test_phased_kernel_opts_in_to_large_shared_memory(cuda):
     # The paths' shapes need more than the default 48 KB of shared memory
     # per block, and give a grid of at least one block per SM.
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for E, n_horiz, al_kernel in ((5120, 12, False), (1280, 40, True)):
-        lanes, smem = fp.phased_plan(E, n_horiz, 99, al_kernel)
+    for E, kernel in ((5120, "K1"), (5120, "K2"), (1280, "K3")):
+        n_horiz, model = PHASED[kernel][:2]
+        lanes, smem = fp.phased_plan(E, n_horiz, 99, model, kernel == "K3")
         assert smem > 48 * 1024 and -(-E // lanes) >= n_sm, (E, lanes, smem)
     u, y0 = _variant_inputs(3, 1280, 40, 6, cuda)
     al = _al_operands(3, 1280, 40, cuda, (3, 9))
@@ -387,13 +395,18 @@ def test_phased_kernel_opts_in_to_large_shared_memory(cuda):
 
 
 @pytest.mark.cuda
-def test_phased_kernel_refuses_an_oversize_shape(cuda):
-    u, y0 = _variant_inputs(0, 64, 12, 6, cuda)
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_phased_kernel_refuses_an_oversize_shape(cuda, kernel):
+    # a road too long for the card's shared memory even at one lane per
+    # block (10,000 rows: 240 KB of centerline table alone)
+    n_horiz, model, sd, name = PHASED[kernel]
+    wrapper = getattr(fp, name)
+    u, y0 = _variant_inputs(0, 64, n_horiz, sd, cuda)
     long_tab, pvec = fp.fan_params(straight_centerline(10000, device=cuda),
                                    VehicleParams())
-    before = fp.fan_value_and_grad.launches
+    before = wrapper.launches
     with pytest.raises(ValueError, match="shared memory"):
-        fp.phased_plan(64, 12, long_tab.shape[0], False)
+        fp.phased_plan(64, n_horiz, long_tab.shape[0], model, False)
     with pytest.raises(ValueError, match="shared memory"):
-        fp.fan_value_and_grad(u, y0, long_tab, pvec, 12, 4, 0.0125, 1.0)
-    assert fp.fan_value_and_grad.launches == before
+        wrapper(u, y0, long_tab, pvec, n_horiz, 4, 0.0125, 1.0)
+    assert wrapper.launches == before

@@ -2,9 +2,10 @@
 the JAX package: K2, the kinematic-bicycle fan (``model="simplified"``), and
 K3, the Pacejka fan with the augmented-Lagrangian penalty of the bounded
 state constraints. The plain PyTorch versions against the fused XLA
-evaluators and against the Pallas kernel in interpret mode; the hand-written
-adjoint (the algorithm of csrc/fused_psi.cu) against autograd; the wrappers'
-CPU path and the kernel check on both variants. The CUDA kernels themselves
+evaluators and against the Pallas kernel in interpret mode; the kernels'
+algorithm (the phased kernel of csrc/fused_psi.cu, transcribed into batched
+torch) against autograd; the wrappers' CPU path and the kernel check on both
+variants. The CUDA kernels themselves
 are held against the plain versions in tests/test_torch_cuda.py.
 """
 
@@ -215,20 +216,13 @@ def _flat(variant, seed, E, n_horiz, cl):
             "simplified" if variant == "kin" else "pacejka", al)
 
 
-def _kernel_algorithm(variant):
-    """The batched transcription of the variant's kernel."""
-    if variant == "kin":
-        return lambda *args, model, al: tfp._fan_adjoint_transcription(*args)
-    return tfp._fan_phased_transcription
-
-
 @pytest.mark.parametrize("variant", ["kin", "al"])
 @pytest.mark.parametrize("road", ["straight", "circle"])
 def test_adjoint_transcription_matches_autograd(variant, road):
-    # The kernels' algorithms in batched torch (K2: the one-thread-per-lane
-    # adjoint; K3: the phased kernel), against the plain version's autograd
-    # gradient. The kinematic lanes include a car at standstill with no
-    # drive, whose speed stays exactly 0, where d|v|/dv = sign(0) = 0.
+    # The kernels' algorithm in batched torch (the phased kernel), against
+    # the plain version's autograd gradient. The kinematic lanes include a
+    # car at standstill with no drive, whose speed stays exactly 0, where
+    # d|v|/dv = sign(0) = 0.
     n_horiz, E = 6, 9
     u, y0, cltab, pvec, model, al = _flat(variant, 5, E, n_horiz,
                                           _road(road))
@@ -238,7 +232,8 @@ def test_adjoint_transcription_matches_autograd(variant, road):
     args = (cltab, pvec, n_horiz, 4, 0.0125, 1.0, DEFAULT_VEHICLE_WEIGHTS)
     psi_ref, grad_ref = tfp.fan_value_and_grad_reference(u, y0, *args,
                                                          model=model, al=al)
-    psi, grad = _kernel_algorithm(variant)(u, y0, *args, model=model, al=al)
+    psi, grad = tfp._fan_phased_transcription(u, y0, *args, model=model,
+                                              al=al)
     np.testing.assert_allclose(psi.numpy(), psi_ref.numpy(), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_allclose(grad.numpy(), grad_ref.numpy(), rtol=2e-5,
@@ -289,8 +284,8 @@ def test_fan_check_on_the_kernel_algorithm(variant):
             rng.uniform(-1.4, 1.4, (E, n_horiz)).astype(np.float32))
     args = (n_horiz, 4, 0.0125, 1.0, DEFAULT_VEHICLE_WEIGHTS)
     tol = (K2_PSI_TOL, K2_GRAD_TOL)
-    psi, grad = _kernel_algorithm(variant)(u, y0, cltab, pvec, *args,
-                                           model=model, al=al)
+    psi, grad = tfp._fan_phased_transcription(u, y0, cltab, pvec, *args,
+                                              model=model, al=al)
     r = compare_fan(psi, grad, u, y0, cltab, pvec, *args, *tol, model=model,
                     al=al)
     assert r["failed"] == 0 and r["excused"] <= E // 20, r
