@@ -3,11 +3,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --timing
 
-It drives the port's three paths, each through its own fan kernel of
-csrc/fused_psi.cu, all three instances of one phased kernel: the headline
-(Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2) and ss_n40
-(bounded state constraints through the ALM general path, N=40; K3). Phases,
-each of which fails the run with a nonzero exit:
+It drives the port's five paths. Three go each through its own fan kernel
+of csrc/fused_psi.cu, all three instances of one phased kernel: the
+headline (Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2)
+and ss_n40 (bounded state constraints through the ALM general path, N=40;
+K3). ilqr_n40 (config 2: the same constrained OCP through AL-iLQR) runs no
+kernel of its own, and etc (config 3: event-triggered MPC over the
+headline's controller) runs K1. Phases, each of which fails the run with a
+nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
@@ -44,15 +47,27 @@ each of which fails the run with a nonzero exit:
    the larger of the bytes it must move over 3.35 TB/s and the operations
    it must do over 67 TFLOP/s (see ``fan_bound``; beside it the former
    count, which charged the per-stage constants to every evaluation);
-5. the three paths, each through ``mpc_tpu_torch.bench`` with every launch
-   count set to 0 just before it and read just after: the headline at batch
-   1024 (5 warm-up, 20 timed steps, then the batch-1 loop over 50 steps),
-   config 1 at batch 1024 (4 warm-up, 10 timed steps), ss_n40 at batch 256
-   (3 warm-up, 6 timed steps). Each path's kernel must have launched at
-   least once per PANOC iteration run (the slowest lane's, summed over
-   steps), every state must be finite, and the mean converged fraction must
-   be >= 0.99 (headline, config 1) or >= 0.98 (ss_n40, whose converged lanes
-   must also meet the constraints to delta = 1e-3).
+5. the LQT solves (mpc_tpu_torch/solver/lqr.py), sequential and parallel
+   scan, at config 2's backward shapes (N=40, n=6, m=2; B=256 and B=1) on
+   drawn well-posed problems with the cross term, each held against the
+   float64 solution of the problem's KKT system to 2e-4 and the two
+   against each other to 5e-4, and their times (CUDA events around one
+   call, median of 20); then one masked AL-iLQR inner iteration at the
+   ilqr_n40 shape under ``torch.cuda.set_sync_debug_mode("error")``, which
+   raises on any host sync;
+6. the paths, each through ``mpc_tpu_torch.bench`` with every launch count
+   set to 0 just before it and read just after: the headline at batch 1024
+   (5 warm-up, 20 timed steps, then the batch-1 loop over 50 steps), config
+   1 at batch 1024 (4 warm-up, 10 timed steps), ss_n40 at batch 256 (3
+   warm-up, 3 timed steps: cut from the cell's 3 + 6 for the script's
+   time, see ``SMOKE_DEPTH``), ilqr_n40 at batch 256 (4 warm-up, 6 timed
+   steps, then the batch-1 loop over 3 + 10 steps), etc at batch 1024 (4
+   warm-up, 12 timed steps). A path's kernel must have launched at least
+   once per PANOC iteration run (the slowest lane's, summed over steps);
+   ilqr_n40 must launch none. Every state must be finite, the mean
+   converged fraction >= 0.99 (headline, config 1, etc) or >= 0.98 (ss_n40,
+   ilqr_n40, whose converged lanes must also meet the constraints to delta
+   = 1e-3), and etc's mean trigger fraction in (0, 1].
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -65,6 +80,7 @@ on one card (run them in turns: the first, the second, the second, the
 first).
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -78,6 +94,10 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 SUBSTEPS, TS, S = 4, 0.05, 100
 EXCUSED_MAX_SHARE = 0.01
 K3_MAX_CALLS = 40           # captured K3 calls checked per shape
+# (warm-up, timed) steps of a path driven at less than its cell's depth:
+# ss_n40's steps take 14-22 s each on the H100, and the script must leave
+# room within its time limit for the AL-iLQR path
+SMOKE_DEPTH = {"ss_n40": (3, 3)}
 
 
 def fail(msg):
@@ -382,8 +402,12 @@ def serial_chain(k, wrapper, fp, info):
 
 def drive(cell, wrapper, fp, min_conv):
     """Drive one path through ``mpc_tpu_torch.bench`` with every launch
-    count set to 0 just before it; fail unless its kernel ran on it."""
+    count set to 0 just before it; fail unless its kernel ran on it, or,
+    for a path without a kernel (``wrapper`` None), unless none ran."""
     from mpc_tpu_torch.bench import run
+    if cell.name in SMOKE_DEPTH:
+        n_warmup, n_steps = SMOKE_DEPTH[cell.name]
+        cell = dataclasses.replace(cell, n_warmup=n_warmup, n_steps=n_steps)
     wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
                 fp.al_fan_value_and_grad)
     for w in wrappers:
@@ -397,20 +421,27 @@ def drive(cell, wrapper, fp, min_conv):
             f"{r['p99_step_latency_s'] * 1e3:.2f} ms, converged "
             f"{r['mean_converged_fraction']:.4f}, inner iters mean "
             f"{r['inner_iters_mean']:.2f} max {r['inner_iters_max']}, "
-            f"PANOC iterations run {r['panoc_iterations_run']}, launches "
+            f"inner iterations run {r['inner_iterations_run']}, launches "
             f"{launches}")
     if "single_solve_p50_s" in r:
         line += (f", batch-1 p50 {r['single_solve_p50_s'] * 1e3:.2f} ms p99 "
                  f"{r['single_solve_p99_s'] * 1e3:.2f} ms")
     if "outer_iters_mean" in r:
-        line += (f", outer iters mean {r['outer_iters_mean']:.3f}, max "
-                 f"violation on converged lanes "
+        line += (f", outer iters mean {r['outer_iters_mean']:.3f} max "
+                 f"{r['outer_iters_max']}, max violation on converged lanes "
                  f"{r['max_violation_converged']:.3e}")
+    if "mean_trigger_fraction" in r:
+        line += f", mean trigger fraction {r['mean_trigger_fraction']:.4f}"
     print(line)
-    own = launches[wrapper.__name__]
-    if own < max(1, r["panoc_iterations_run"]):
-        fail(f"{cell.name}: the path launched its fan kernel {own} times "
-             f"for {r['panoc_iterations_run']} PANOC iterations")
+    if wrapper is None:
+        if any(launches.values()):
+            fail(f"{cell.name}: a path without a fan kernel launched one: "
+                 f"{launches}")
+    else:
+        own = launches[wrapper.__name__]
+        if own < max(1, r["inner_iterations_run"]):
+            fail(f"{cell.name}: the path launched its fan kernel {own} "
+                 f"times for {r['inner_iterations_run']} PANOC iterations")
     if not r["states_finite"]:
         fail(f"{cell.name}: non-finite plant state in the closed loop")
     if not r["mean_converged_fraction"] >= min_conv:
@@ -419,7 +450,163 @@ def drive(cell, wrapper, fp, min_conv):
     if r.get("max_violation_converged", 0.0) > cell.alm_cfg.delta:
         fail(f"{cell.name}: a converged lane violates the constraints by "
              f"{r['max_violation_converged']} > delta")
-    return r, own
+    if "mean_trigger_fraction" in r \
+            and not 0.0 < r["mean_trigger_fraction"] <= 1.0:
+        fail(f"{cell.name}: mean trigger fraction "
+             f"{r['mean_trigger_fraction']} outside (0, 1]")
+    return launches
+
+
+# ---- the LQT solves (mpc_tpu_torch/solver/lqr.py) --------------------------
+
+LQT_TOL = 2e-4          # us, xs against the float64 KKT solution
+LQT_PAIR_TOL = 5e-4     # parallel against sequential
+
+
+def random_lqt(rng, N, n, m):
+    """A drawn well-posed LQT problem with the cross term, float64 (the
+    generator of tests/test_lqr.py:17-37)."""
+    import numpy as np
+
+    def psd(k, scale=1.0):
+        M = rng.normal(size=(k, k))
+        return scale * (M @ M.T / k + np.eye(k))
+
+    A = np.stack([np.eye(n) + 0.1 * rng.normal(size=(n, n))
+                  for _ in range(N)])
+    B = 0.5 * rng.normal(size=(N, n, m))
+    c = 0.1 * rng.normal(size=(N, n))
+    Q = np.stack([psd(n, 0.5) for _ in range(N)])
+    q = 0.1 * rng.normal(size=(N, n))
+    R = np.stack([psd(m, 1.0) for _ in range(N)])
+    r = 0.1 * rng.normal(size=(N, m))
+    P = 0.1 * rng.normal(size=(N, m, n))
+    QN = psd(n, 1.0)
+    qN = 0.1 * rng.normal(size=(n,))
+    x0 = rng.normal(size=(n,))
+    return x0, A, B, c, Q, q, R, r, QN, qN, P
+
+
+def kkt_oracle(x0, A, B, c, Q, q, R, r, QN, qN, P):
+    """(xs, us) of the LQT problem by a dense float64 solve of its KKT
+    system in z = [x_1..x_N, u_0..u_{N-1}] (a copy of tests/test_lqr.py:
+    40-90)."""
+    import numpy as np
+    N, n = A.shape[0], A.shape[1]
+    m = B.shape[2]
+    nz = N * n + N * m
+
+    def xi(k):
+        return slice((k - 1) * n, k * n)
+
+    def ui(k):
+        return slice(N * n + k * m, N * n + (k + 1) * m)
+
+    H = np.zeros((nz, nz))
+    h = np.zeros(nz)
+    for k in range(N):
+        H[ui(k), ui(k)] += R[k]
+        h[ui(k)] += r[k]
+        if k == 0:
+            h[ui(0)] += P[0] @ x0
+        else:
+            H[xi(k), xi(k)] += Q[k]
+            h[xi(k)] += q[k]
+            H[ui(k), xi(k)] += P[k]
+            H[xi(k), ui(k)] += P[k].T
+    H[xi(N), xi(N)] += QN
+    h[xi(N)] += qN
+    E = np.zeros((N * n, nz))
+    d = np.zeros(N * n)
+    for k in range(N):
+        rows = slice(k * n, (k + 1) * n)
+        E[rows, xi(k + 1)] = np.eye(n)
+        E[rows, ui(k)] = -B[k]
+        d[rows] = c[k]
+        if k == 0:
+            d[rows] += A[0] @ x0
+        else:
+            E[rows, xi(k)] = -A[k]
+    KKT = np.block([[H, E.T], [E, np.zeros((N * n, N * n))]])
+    sol = np.linalg.solve(KKT, np.concatenate([-h, d]))
+    return (np.concatenate([x0[None], sol[: N * n].reshape(N, n)]),
+            sol[N * n: nz].reshape(N, m))
+
+
+def lqt_phase(info):
+    """Both LQT solves on the card at config 2's backward shapes (N=40,
+    n=6, m=2; B=256 and 1) against the float64 KKT solution and each other,
+    and their times, CUDA events around each call (median of 20): the
+    sequential Riccati against the parallel scan."""
+    import numpy as np
+    import torch
+    from mpc_tpu_torch.solver.lqr import (lqt_solve_parallel,
+                                          lqt_solve_sequential)
+    out = {}
+    for B in (256, 1):
+        rng = np.random.default_rng(B)
+        probs = [random_lqt(rng, 40, 6, 2) for _ in range(B)]
+        oracle = [kkt_oracle(*p) for p in probs]
+        xs_o = np.stack([o[0] for o in oracle])
+        us_o = np.stack([o[1] for o in oracle])
+        args = [torch.as_tensor(np.stack([p[i] for p in probs]),
+                                dtype=torch.float32, device="cuda")
+                for i in range(11)]
+        sols, times = {}, {}
+        for name, fn in (("sequential", lqt_solve_sequential),
+                         ("parallel", lqt_solve_parallel)):
+            sol = fn(*args[:10], P=args[10])
+            torch.cuda.synchronize()
+            err = max(float(np.abs(sol.us.cpu().numpy() - us_o).max()),
+                      float(np.abs(sol.xs.cpu().numpy() - xs_o).max()))
+            if not err <= LQT_TOL:
+                fail(f"LQT {name} B={B}: max error {err:.3e} against the "
+                     f"float64 KKT solution > {LQT_TOL}")
+            sols[name] = sol
+            times[name] = median_ms(lambda: fn(*args[:10], P=args[10]),
+                                    n=20)
+            out[(B, name)] = dict(ms=times[name], max_abs_err=err)
+        gap = max(float((sols["parallel"].us
+                         - sols["sequential"].us).abs().max()),
+                  float((sols["parallel"].xs
+                         - sols["sequential"].xs).abs().max()))
+        if not gap <= LQT_PAIR_TOL:
+            fail(f"LQT B={B}: parallel and sequential differ by {gap:.3e}")
+        print(f"LQT B={B} N=40 n=6 m=2: sequential {times['sequential']:.3f}"
+              f" ms (max err {out[(B, 'sequential')]['max_abs_err']:.2e}), "
+              f"parallel {times['parallel']:.3f} ms (max err "
+              f"{out[(B, 'parallel')]['max_abs_err']:.2e}), apart "
+              f"{gap:.2e}; CUDA events around one call, median of 20; "
+              f"{info['nvidia_smi']}")
+    return out
+
+
+def no_sync_phase(bench):
+    """One masked AL-iLQR inner iteration at the ilqr_n40 shape under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    import torch
+    loop = bench.ClosedLoop(bench.ILQR_N40)
+    ys, carry = loop.start(loop.cell.batch)
+    param = {"y0": ys, "p": loop.params, "centerline": loop.centerline}
+    sigma = torch.full_like(carry.lam, loop.cell.alm_cfg.sigma_0)
+    st, iterate, cond, result = loop.ctrl.solve.prepare_inner(
+        param, carry.U, carry.lam, sigma)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = iterate(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    res = result(st)
+    if not bool(torch.isfinite(res.cost).all()) \
+            or int(res.iterations.min()) != 1:
+        fail("no-sync check: the iteration did not run on every lane")
+    print(f"no-sync check: one AL-iLQR inner iteration at batch "
+          f"{loop.cell.batch}, N={loop.cell.n_horiz} ran with "
+          f"set_sync_debug_mode('error') in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
 
 class Kernel(NamedTuple):
@@ -604,9 +791,15 @@ def main():
             for k, m in zip(KERNELS, measured)]}))
         return
 
-    # ---- 5. the three paths -----------------------------------------------
+    # ---- 5. the LQT solves and the no-sync check --------------------------
+    lqt_phase(info)
+    no_sync_phase(bench)
+
+    # ---- 6. the paths -----------------------------------------------------
     launches = [drive(getattr(bench, k.cell), getattr(fp, k.wrapper), fp,
-                      k.min_conv)[1] for k in KERNELS]
+                      k.min_conv)[k.wrapper] for k in KERNELS]
+    ilqr_launches = drive(bench.ILQR_N40, None, fp, 0.98)
+    etc_launches = drive(bench.ETC, fp.fan_value_and_grad, fp, 0.99)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -617,7 +810,9 @@ def main():
             "name": k.name, "variant": k.variant, "route": "cuda",
             "source": "mpc_tpu_torch/csrc/fused_psi.cu",
             "replaces": "mpc_tpu/ops/fused_psi.py:321",
-            "launches": n, "max_abs_err": m["max_abs_err"],
+            "launches": n, "launches_etc": etc_launches[k.wrapper],
+            "launches_ilqr_n40": ilqr_launches[k.wrapper],
+            "max_abs_err": m["max_abs_err"],
             "max_rel_err": m["max_rel_err"],
             "lane_term_needed": m["lane_term_needed"],
             "lanes_checked": m["lanes"], "lanes_excused": m["excused"],

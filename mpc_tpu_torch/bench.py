@@ -19,11 +19,22 @@ NVIDIA GPU, one closed loop per cell.
   sigma_0=1e3)``, ``PanocConfig(lbfgs_memory=40, max_iter=150)``, batch 256,
   3 warm-up and 6 timed steps (examples/exp_ms.py:97-119). Its fan is
   kernel K3.
+- ``ilqr_n40``: config 2 (examples/bench_suite.py:145-169), the same OCP
+  and road solved by AL-iLQR with the sequential Riccati backward pass,
+  ``AlmConfig(delta=1e-3, max_iter=8, sigma_0=1e3, penalty_factor=5.0)``,
+  ``IlqrConfig(max_iter=30)``, batch 256 on the ss_n40 initial states, 4
+  warm-up and 6 timed steps, then a batch-1 loop of 3 warm-up and 10 timed
+  steps (the source runs 5 + 40). No kernel: batched torch ops throughout.
+- ``etc``: config 3 (examples/bench_suite.py:172-215), event-triggered MPC
+  (threshold 1e-2, eps 1e-4) over the headline's controller on the straight
+  road, batch 1024, y0 = [0, U(-0.1, 0.1), 0, U(0.3, 1.0), 0, 0], 4 warm-up
+  and 12 timed steps. Its fan is kernel K1; it also reports the mean
+  fraction of lanes that trigger a solve.
 
 ``solves/s`` is all the timed solves over all the timed wall time; the root
 ``bench.py`` divides the batch by the p50 step.
 
-    python -m mpc_tpu_torch.bench [headline|config1|ss_n40]
+    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc]
 
 Prints a detail JSON line (with the card's name and power limit) and, last,
 the result JSON line. Without a CUDA device it exits with an error: a
@@ -37,13 +48,15 @@ import json
 import subprocess
 import sys
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from mpc_tpu_torch.config import AlmConfig, PanocConfig
-from mpc_tpu_torch.control.mpc import build_vehicle_controller
+from mpc_tpu_torch.config import AlmConfig, IlqrConfig, PanocConfig
+from mpc_tpu_torch.control.event_triggered import EventTriggeredController
+from mpc_tpu_torch.control.mpc import (build_vehicle_controller,
+                                       build_vehicle_ilqr_controller)
 from mpc_tpu_torch.models.bicycle import pacejka_dynamics, simplified_dynamics
 from mpc_tpu_torch.models.integrators import discretize
 from mpc_tpu_torch.models.params import VehicleParams
@@ -108,44 +121,74 @@ def ss_n40_states(batch: int, seed: int = SEED) -> np.ndarray:
     return y0s
 
 
+def etc_states(batch: int, seed: int = SEED) -> np.ndarray:
+    """[0, U(-0.1, 0.1), 0, U(0.3, 1.0), 0, 0], drawn as
+    examples/bench_suite.py:182-186 draws them."""
+    rng = np.random.default_rng(seed)
+    y0s = np.zeros((batch, 6), np.float32)
+    y0s[:, 1] = rng.uniform(-0.1, 0.1, batch)
+    y0s[:, 3] = rng.uniform(0.3, 1.0, batch)
+    return y0s
+
+
 @dataclasses.dataclass(frozen=True)
 class Cell:
-    """One benchmark configuration: controller, plant, road, lanes, steps."""
+    """One benchmark configuration: controller, plant, road, lanes, steps.
+
+    ``solver_cfg`` is the inner solver's configuration, and its type names
+    the solver family: ``PanocConfig`` (ALM+PANOC) or ``IlqrConfig``
+    (AL-iLQR). ``batch1_steps`` is the (warm-up, timed) steps of a batch-1
+    loop after the batched one; ``trigger_threshold`` wraps the controller
+    in event-triggered MPC."""
     name: str
     model: str
     n_horiz: int
     alm_cfg: AlmConfig
-    panoc_cfg: PanocConfig
+    solver_cfg: PanocConfig | IlqrConfig
     road: Callable[..., torch.Tensor]
     states: Callable[[int], np.ndarray]
     batch: int
     n_warmup: int
     n_steps: int
     bound_state_constraints: bool = False
-    batch1_latency: bool = False
+    batch1_steps: Optional[tuple] = None
+    trigger_threshold: Optional[float] = None
+
+
+def _straight(device):
+    return straight_centerline(CENTERLINE_POINTS, device=device)
 
 
 HEADLINE = Cell(
     "headline", "pacejka", N_HORIZ, AlmConfig(eps=1e-4),
-    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300),
-    lambda device: straight_centerline(CENTERLINE_POINTS, device=device),
-    initial_states, BATCH, N_WARMUP, N_STEPS, batch1_latency=True)
+    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300), _straight,
+    initial_states, BATCH, N_WARMUP, N_STEPS,
+    batch1_steps=(N_WARMUP, N_LATENCY))
 CONFIG1 = Cell(
     "config1", "simplified", 20, AlmConfig(eps=1e-4),
-    PanocConfig(lbfgs_memory=20, max_iter=200),
-    lambda device: straight_centerline(CENTERLINE_POINTS, device=device),
+    PanocConfig(lbfgs_memory=20, max_iter=200), _straight,
     config1_states, 1024, 4, 10)
 SS_N40 = Cell(
     "ss_n40", "pacejka", 40,
     AlmConfig(eps=1e-3, delta=1e-3, max_iter=8, eps_0=1e-2, sigma_0=1e3),
     PanocConfig(lbfgs_memory=40, max_iter=150), lane_change_road,
     ss_n40_states, 256, 3, 6, bound_state_constraints=True)
-CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40)}
+ILQR_N40 = Cell(
+    "ilqr_n40", "pacejka", 40,
+    AlmConfig(delta=1e-3, max_iter=8, sigma_0=1e3, penalty_factor=5.0),
+    IlqrConfig(max_iter=30), lane_change_road, ss_n40_states, 256, 4, 6,
+    bound_state_constraints=True, batch1_steps=(3, 10))
+ETC = Cell(
+    "etc", "pacejka", N_HORIZ, AlmConfig(eps=1e-4),
+    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300), _straight, etc_states,
+    1024, 4, 12, trigger_threshold=1e-2)
+CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40, ILQR_N40, ETC)}
 
 
 class ClosedLoop:
     """A cell's controller, plant and road on the card;
-    ``step(ys, carry) -> (ys, carry, result)`` is one closed-loop step."""
+    ``step(ys, carry) -> (ys, carry, out)`` is one closed-loop step, with
+    ``out`` the controller's step output (``out.result`` the solve's)."""
 
     def __init__(self, cell: Cell = HEADLINE):
         if not torch.cuda.is_available():
@@ -153,13 +196,23 @@ class ClosedLoop:
                                "benchmark runs only on a GPU")
         dev = self.device = torch.device("cuda")
         self.cell = cell
-        self.ctrl = build_vehicle_controller(
-            n_horiz=cell.n_horiz, alm_cfg=cell.alm_cfg,
-            panoc_cfg=cell.panoc_cfg, model=cell.model,
-            bound_state_constraints=cell.bound_state_constraints, device=dev)
         self.params = VehicleParams()
         self.f_d = discretize(pacejka_dynamics if cell.model == "pacejka"
                               else simplified_dynamics)
+        kw = dict(n_horiz=cell.n_horiz, alm_cfg=cell.alm_cfg,
+                  model=cell.model,
+                  bound_state_constraints=cell.bound_state_constraints,
+                  device=dev)
+        if isinstance(cell.solver_cfg, IlqrConfig):
+            self.ctrl = build_vehicle_ilqr_controller(
+                ilqr_cfg=cell.solver_cfg, **kw)
+        else:
+            self.ctrl = build_vehicle_controller(panoc_cfg=cell.solver_cfg,
+                                                 **kw)
+        if cell.trigger_threshold is not None:
+            self.ctrl = EventTriggeredController(
+                base=self.ctrl, f_d=self.f_d,
+                threshold=cell.trigger_threshold, eps=cell.alm_cfg.eps)
         self.centerline = cell.road(device=dev)
 
     def start(self, batch: int):
@@ -167,42 +220,45 @@ class ClosedLoop:
         ``batch`` rows of the cell's initial states."""
         ys = torch.as_tensor(self.cell.states(self.cell.batch)[:batch],
                              device=self.device)
-        return ys, self.ctrl.init_carry(batch, self.device)
+        return ys, self.ctrl.init_carry(batch, device=self.device)
 
     def step(self, ys, carry):
         out = self.ctrl.step(carry, {"y0": ys, "p": self.params,
                                      "centerline": self.centerline})
-        return self.f_d(ys, out.u0, self.params), out.carry, out.result
+        return self.f_d(ys, out.u0, self.params), out.carry, out
 
 
 @torch.no_grad()
 def run(cell: Cell = HEADLINE) -> dict:
-    """Run the cell's closed loop at its batch (and, for the headline, the
-    batch-1 latency loop) on the card; return the measurements."""
+    """Run the cell's closed loop at its batch (and its batch-1 loop, where
+    it has one) on the card; return the measurements."""
     loop = ClosedLoop(cell)
     sync = torch.cuda.synchronize
-    iters_run = []          # per step: the slowest lane's PANOC iterations
+    iters_run = []          # per step: the slowest lane's inner iterations
 
     def step(ys, carry):
-        ys, carry, res = loop.step(ys, carry)
-        iters_run.append(res.inner_iterations.max())
-        return ys, carry, res
+        ys, carry, out = loop.step(ys, carry)
+        iters_run.append(out.result.inner_iterations.max())
+        return ys, carry, out
 
     ys, carry = loop.start(cell.batch)
     for _ in range(cell.n_warmup):
         ys, carry, _ = step(ys, carry)
     sync()
-    times, conv, iters, outer, viol = [], [], [], [], []
+    times, conv, iters, outer, viol, trig = [], [], [], [], [], []
     for _ in range(cell.n_steps):
         t0 = time.perf_counter()
-        ys, carry, res = step(ys, carry)
+        ys, carry, out = step(ys, carry)
         sync()
         times.append(time.perf_counter() - t0)
+        res = out.result
         conv.append(res.converged.float().mean())
         iters.append(res.inner_iterations)
         outer.append(res.outer_iterations)
         viol.append(torch.where(res.converged, res.constraint_violation,
                                 torch.zeros_like(res.constraint_violation)))
+        if cell.trigger_threshold is not None:
+            trig.append(out.triggered.float().mean())
     times = np.asarray(times)
     iters = torch.stack(iters).float()
     r = {
@@ -218,14 +274,18 @@ def run(cell: Cell = HEADLINE) -> dict:
     finite = bool(torch.isfinite(ys).all())
     if cell.bound_state_constraints:
         r["outer_iters_mean"] = float(torch.stack(outer).float().mean())
+        r["outer_iters_max"] = int(torch.stack(outer).max())
         r["max_violation_converged"] = float(torch.stack(viol).max())
-    if cell.batch1_latency:
+    if trig:
+        r["mean_trigger_fraction"] = float(torch.stack(trig).mean())
+    if cell.batch1_steps is not None:
+        n_warm, n_timed = cell.batch1_steps
         y1, c1 = loop.start(1)
-        for _ in range(cell.n_warmup):
+        for _ in range(n_warm):
             y1, c1, _ = step(y1, c1)
         sync()
         lat = []
-        for _ in range(N_LATENCY):
+        for _ in range(n_timed):
             t0 = time.perf_counter()
             y1, c1, _ = step(y1, c1)
             sync()
@@ -234,11 +294,12 @@ def run(cell: Cell = HEADLINE) -> dict:
         r.update({
             "single_solve_p50_s": float(np.percentile(lat, 50)),
             "single_solve_p99_s": float(np.percentile(lat, 99)),
+            "single_solve_steps": n_timed,
             "realtime_budget_s": REALTIME_BUDGET_S,
         })
         finite = finite and bool(torch.isfinite(y1).all())
     r["states_finite"] = finite
-    r["panoc_iterations_run"] = int(torch.stack(iters_run).sum())
+    r["inner_iterations_run"] = int(torch.stack(iters_run).sum())
     return r
 
 

@@ -53,3 +53,27 @@ class MpcConfig:
     v_ref: float = 1.0
     centerline_size: int = 100
     n_sim: int = 400
+
+
+@dataclasses.dataclass(frozen=True)
+class IlqrConfig:
+    """Inner iLQR solver configuration (mpc_tpu/solver/ilqr.py:40-84).
+
+    Every field and default of the reference but ``unroll``, which only
+    tells XLA how far to unroll a ``lax.scan``: the port's rollouts are
+    Python loops and have no scan to unroll.
+    """
+    max_iter: int = 40
+    tol_grad: float = 1e-4        # max|ko| stationarity proxy
+    tol_dcost: float = 1e-7       # relative cost-decrease exit
+    tol_stall: float = 2e-6       # stall exit (rejected step, cost matched)
+    alphas: tuple = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01)
+    reg_init: float = 1e-3
+    reg_min: float = 1e-6
+    reg_max: float = 1e8
+    reg_up: float = 8.0
+    reg_down: float = 0.5
+    reg_conv_max: float = 1.0     # exits are claimable only at reg <= this
+    trace: bool = False
+    parallel_backward: bool = False
+    gauss_newton: bool = True

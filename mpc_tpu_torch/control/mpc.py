@@ -15,15 +15,18 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from mpc_tpu_torch.config import AlmConfig, PanocConfig
+from mpc_tpu_torch.config import AlmConfig, IlqrConfig, PanocConfig
 from mpc_tpu_torch.models.bicycle import (pacejka_dynamics,
                                            simplified_dynamics)
 from mpc_tpu_torch.models.integrators import discretize
 from mpc_tpu_torch.models.params import VehicleParams
-from mpc_tpu_torch.ops.costs import DEFAULT_VEHICLE_WEIGHTS, vehicle_stage_cost
+from mpc_tpu_torch.ops.costs import (DEFAULT_VEHICLE_WEIGHTS,
+                                     vehicle_stage_cost,
+                                     vehicle_stage_residuals)
 from mpc_tpu_torch.ops.fused_psi import (fan_params, make_vehicle_al_multi,
                                          make_vehicle_cost_multi)
 from mpc_tpu_torch.solver.alm import AlmResult, make_alm_solver
+from mpc_tpu_torch.solver.ilqr import make_al_ilqr_solver
 from mpc_tpu_torch.solver.problem import Box, Problem, build_ocp_problem
 
 # Quadratic state-constraint offsets: y_i^2 - b_i per stage
@@ -230,6 +233,82 @@ def build_vehicle_controller(n_horiz: int = 12, v_ref: float = 1.0,
     if panoc_cfg is None:
         panoc_cfg = PanocConfig(lbfgs_memory=n_horiz)
     solve = make_alm_solver(problem, alm_cfg, panoc_cfg)
+    return MpcController(problem=problem, solve=solve, n_horiz=n_horiz,
+                         input_dim=2, warm_start_input=(1.0, 0.0),
+                         device=device)
+
+
+def build_vehicle_ilqr_controller(n_horiz: int = 40, v_ref: float = 1.0,
+                                  ts: float = 0.05,
+                                  params: Optional[VehicleParams] = None,
+                                  bound_state_constraints: bool = False,
+                                  weights=DEFAULT_VEHICLE_WEIGHTS,
+                                  model: str = "pacejka",
+                                  alm_cfg: Optional[AlmConfig] = None,
+                                  ilqr_cfg: Optional[IlqrConfig] = None,
+                                  obstacle_weight: float = 0.0,
+                                  mesh=None, device=None) -> MpcController:
+    """Vehicle MPC controller backed by AL-iLQR (solver/ilqr.py;
+    mpc_tpu/control/mpc.py:314-428): the same OCP as
+    :func:`build_vehicle_ocp`, solved with Gauss-Newton curvature from the
+    stage cost's residual form. With ``bound_state_constraints`` (Pacejka)
+    the quadratic state constraints ``x^2 - STATE_CONSTRAINT_OFFSETS <= 0``
+    go through the AL outer loop. It runs no fan kernel: the AL-iLQR path
+    is batched torch ops throughout. ``device=None`` is the card
+    (:func:`resolve_device`). The obstacle field and the horizon-sharded
+    ``mesh=`` path are not ported yet and raise.
+    """
+    if obstacle_weight > 0.0:
+        raise NotImplementedError("mpc_tpu_torch: the obstacle field "
+                                  "(ops/potential_field.py) is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("mpc_tpu_torch: the horizon-sharded "
+                                  "AL-iLQR (parallel/ilqr_sharded.py) is not "
+                                  "ported yet")
+    if model == "pacejka":
+        state_dim, dynamics = 6, pacejka_dynamics
+    elif model == "simplified":
+        state_dim, dynamics = 4, simplified_dynamics
+    else:
+        raise ValueError(f"unknown model {model!r}")
+    device = resolve_device(device)
+    if params is None:
+        params = VehicleParams()
+    f_d = discretize(dynamics, ts=ts)
+
+    def stage_cost(x, u, param):
+        return vehicle_stage_cost(x, u, param["centerline"], v_ref, weights)
+
+    def stage_residuals(x, u, param):
+        return vehicle_stage_residuals(x, u, param["centerline"], v_ref,
+                                       weights)
+
+    lim = torch.tensor([float(params.max_drive), float(params.max_steer)],
+                       dtype=torch.float32, device=device).repeat(n_horiz)
+    C = Box(lower=-lim, upper=lim)
+
+    stage_constraints, n_stage = None, 0
+    if bound_state_constraints and state_dim == 6:
+        offs = torch.tensor(STATE_CONSTRAINT_OFFSETS, dtype=torch.float32,
+                            device=device)
+
+        def stage_constraints(x, u, param):
+            return x ** 2 - offs
+
+        n_stage = 6
+    m = n_stage * n_horiz
+    D = Box(torch.full((m,), -float("inf"), device=device),
+            torch.zeros((m,), device=device))
+
+    problem = build_ocp_problem(
+        f_d, stage_cost, n_horiz, state_dim=state_dim, input_dim=2, C=C,
+        stage_constraints=stage_constraints, n_stage_constraints=n_stage,
+        D=D)
+    solve = make_al_ilqr_solver(
+        f_d, stage_cost, n_horiz, state_dim, 2, u_box=C,
+        stage_constraints=stage_constraints, n_stage_constraints=n_stage,
+        D=D, alm_cfg=alm_cfg or AlmConfig(),
+        ilqr_cfg=ilqr_cfg or IlqrConfig(), stage_residuals=stage_residuals)
     return MpcController(problem=problem, solve=solve, n_horiz=n_horiz,
                          input_dim=2, warm_start_input=(1.0, 0.0),
                          device=device)

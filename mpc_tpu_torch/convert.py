@@ -12,6 +12,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from mpc_tpu_torch.control.event_triggered import EtcCarry
 from mpc_tpu_torch.control.mpc import MpcCarry
 from mpc_tpu_torch.models.params import KERNEL_PARAM_FIELDS, VehicleParams
 
@@ -34,19 +35,35 @@ def vehicle_params_from_numpy(leaves: Mapping[str, np.ndarray]) -> VehicleParams
     return VehicleParams(**kwargs)
 
 
-def carry_from_numpy(leaves: Mapping[str, np.ndarray], device=None) -> MpcCarry:
-    """``MpcCarry`` from the JAX ``MpcCarry`` leaves as numpy arrays with a
-    leading lane axis (``{k: np.asarray(v) for k, v in carry._asdict()}``)."""
-    # np.array copies: the leaves of a JAX array are read-only views
+def _leaf_readers(leaves, device):
+    """Readers of one leaf as a float32 and as an int32 tensor; np.array
+    copies, since the leaves of a JAX array are read-only views."""
     def f32(k):
         return torch.as_tensor(np.array(leaves[k], np.float32), device=device)
 
     def i32(k):
         return torch.as_tensor(np.array(leaves[k], np.int32), device=device)
 
+    return f32, i32
+
+
+def carry_from_numpy(leaves: Mapping[str, np.ndarray], device=None) -> MpcCarry:
+    """``MpcCarry`` from the JAX ``MpcCarry`` leaves as numpy arrays with a
+    leading lane axis (``{k: np.asarray(v) for k, v in carry._asdict()}``)."""
+    f32, i32 = _leaf_readers(leaves, device)
     return MpcCarry(U=f32("U"), lam=f32("lam"), sigma=f32("sigma"),
                     gamma=f32("gamma"), tot_it=i32("tot_it"),
                     failures=i32("failures"))
+
+
+def etc_carry_from_numpy(leaves: Mapping[str, np.ndarray],
+                         device=None) -> EtcCarry:
+    """``EtcCarry`` from the JAX ``EtcCarry`` leaves as numpy arrays with a
+    leading lane axis."""
+    f32, i32 = _leaf_readers(leaves, device)
+    return EtcCarry(U=f32("U"), lam=f32("lam"), xs_pred=f32("xs_pred"),
+                    k=i32("k"), tot_solves=i32("tot_solves"),
+                    tot_it=i32("tot_it"))
 
 
 def centerline_from_numpy(cl: np.ndarray, device=None) -> torch.Tensor:

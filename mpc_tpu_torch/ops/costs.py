@@ -1,7 +1,9 @@
-"""Vehicle tracking stage cost (port of mpc_tpu/ops/costs.py:20-46)."""
+"""Vehicle tracking stage cost and its residual form (port of
+mpc_tpu/ops/costs.py:20-79)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mpc_tpu_torch.ops.road import compute_errors_ocp
@@ -33,3 +35,31 @@ def vehicle_stage_cost(x: torch.Tensor, u: torch.Tensor,
             + c[3] * err.heading_error ** 2
             + c[4] * u[:, 1] ** 2
             + c[5] * u[:, 0] ** 2)
+
+
+def vehicle_stage_residuals(x: torch.Tensor, u: torch.Tensor,
+                            centerline: torch.Tensor, target_v: float,
+                            c=DEFAULT_VEHICLE_WEIGHTS) -> torch.Tensor:
+    """Residual form ``(B, 6)`` of :func:`vehicle_stage_cost`
+    (mpc_tpu/ops/costs.py:49-79): ``vehicle_stage_cost == sum(res**2)``.
+
+    The Gauss-Newton iLQR backward pass takes its curvature from the
+    residuals' Jacobian. As in the reference, the speed residual's
+    derivative is NaN at zero speed (the derivative of ``sqrt`` at 0).
+    """
+    err = compute_errors_ocp(x[:, :2], x[:, 2], centerline)
+    if x.shape[1] >= 5:
+        speed = torch.sqrt(x[:, 3] ** 2 + x[:, 4] ** 2)
+    else:
+        speed = torch.abs(x[:, 3])
+    # the weights' square roots in float32, as jnp.sqrt takes them; Python
+    # floats, so that no tensor is copied to the card per call
+    w = [float(np.sqrt(np.float32(ci))) for ci in c]
+    return torch.stack([
+        w[0] * (speed - target_v),
+        w[1] * err.cte,
+        w[2] * err.pos_error,
+        w[3] * err.heading_error,
+        w[4] * u[:, 1],
+        w[5] * u[:, 0],
+    ], dim=1)

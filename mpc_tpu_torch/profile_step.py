@@ -2,17 +2,22 @@
 fan kernel's share of it, device kernels per step, and the device's idle
 share. Same controllers, roads and initial states as ``mpc_tpu_torch.bench``.
 
-    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40]
+    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc]
 
-For the cell's batch (and, for the headline, batch 1): the cell's warm-up
-steps, then 3 steps (1 for ss_n40, whose step runs some 1,500 device kernels
-per PANOC iteration over hundreds of iterations) run twice from the same
-state. The first time they are timed on the host clock, with a
-synchronise after each step and no profiler. The second time they run under
-``torch.profiler``. The steps are deterministic, so both runs do the same
-work; the script checks that their iteration counts agree. So the idle share,
-``1 - busy / wall``, takes busy from the profiled run and wall from the
-unprofiled run of the same steps in the same process.
+For the cell's batch (and its batch-1 loop's, where it has one): the cell's
+warm-up steps, then 3 steps (1 for ss_n40, whose step runs some 1,500
+device kernels per PANOC iteration over hundreds of iterations) run twice
+from the same state. For ilqr_n40, whose inner iteration issues some 45,000
+kernels and whose step runs tens of them, the profiled unit is 2 AL-iLQR
+inner iterations from the warm carry (``solve.prepare_inner``), not a step.
+For etc it is the cell's 12 timed steps: its lanes re-solve together, on
+the step where their plans expire (one step in 12), and replay between.
+The first time they are timed on the host clock, with a synchronise after
+each and no profiler. The second time they run under ``torch.profiler``.
+They are deterministic, so both runs do the same work; the script checks
+that their iteration counts agree. So the idle share, ``1 - busy / wall``,
+takes busy from the profiled run and wall from the unprofiled run of the
+same work in the same process.
 
 Busy is the union of the device intervals (kernels, copies, sets) in the
 profiler's trace. The trace is written to ``build/profile/`` in the checkout.
@@ -30,8 +35,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mpc_tpu_torch.bench import CELLS, ClosedLoop, gpu_info
+from mpc_tpu_torch.config import IlqrConfig
 
-N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1}
+N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1, "ilqr_n40": 2,
+              "etc": 12}
 FAN_KERNEL = "fused_psi_fan"   # K1-K3: instances of fused_psi_fan_phased
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,11 +55,23 @@ def _run_steps(loop, ys, carry):
     walls, iters = [], []
     for _ in range(N_PROFILED[loop.cell.name]):
         t0 = time.perf_counter()
-        ys, carry, res = loop.step(ys, carry)
-        iters.append(int(res.inner_iterations.max()))
+        ys, carry, out = loop.step(ys, carry)
+        iters.append(int(out.result.inner_iterations.max()))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return walls, iters
+
+
+def _run_inner_iterations(iterate, st):
+    """Masked AL-iLQR inner iterations from ``st``; per iteration the wall
+    time (s) and 1."""
+    walls = []
+    for _ in range(N_PROFILED["ilqr_n40"]):
+        t0 = time.perf_counter()
+        st = iterate(st)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, [1] * len(walls)
 
 
 def _device_intervals(trace_path):
@@ -82,11 +101,28 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
         ys, carry, _ = loop.step(ys, carry)
     torch.cuda.synchronize()
 
-    walls, iters = _run_steps(loop, *_clone(ys, carry))
+    has_fan = not isinstance(loop.cell.solver_cfg, IlqrConfig)
+    if has_fan:
+        def work():
+            return _run_steps(loop, *_clone(ys, carry))
+    else:
+        # the inner problem of the next step's first outer iteration: the
+        # warm carry's multipliers and penalties (cold lanes at sigma_0)
+        sigma = torch.where(carry.sigma > 0, carry.sigma,
+                            torch.full_like(carry.sigma,
+                                            loop.cell.alm_cfg.sigma_0))
+        st, iterate, _, _ = loop.ctrl.solve.prepare_inner(
+            {"y0": ys, "p": loop.params, "centerline": loop.centerline},
+            carry.U, carry.lam, sigma)
+
+        def work():
+            return _run_inner_iterations(iterate, st)
+
+    walls, iters = work()
     launches0 = sum(w.launches for w in wrappers)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_walls, prof_iters = _run_steps(loop, *_clone(ys, carry))
+        prof_walls, prof_iters = work()
     launches = sum(w.launches for w in wrappers) - launches0
     if prof_iters != iters:
         raise RuntimeError(f"the profiled steps did other work than the "
@@ -99,25 +135,30 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     dev = _device_intervals(path)
     kernels = [iv for iv in dev if iv[2] == "kernel"]
     fan = [iv for iv in kernels if FAN_KERNEL in iv[3]]
-    if not kernels or not fan:
+    if not kernels or has_fan != bool(fan):
         raise RuntimeError(f"the profiler's trace holds {len(kernels)} "
                            f"device kernels, {len(fan)} of them the fan "
-                           f"kernel: no device time to report")
+                           f"kernel, on a path {'with' if has_fan else 'without'}"
+                           f" one")
     busy_ms = _union_us(dev) / 1e3
     fan_ms = sum(b - a for a, b, _, _ in fan) / 1e3
     wall_ms = sum(walls) * 1e3
-    return {
-        "cell": loop.cell.name, "batch": batch, "steps": len(iters),
-        "slowest_lane_iters": iters,
+    r = {
+        "cell": loop.cell.name, "batch": batch,
+        "unit": "step" if has_fan else "inner iteration",
+        "units": len(iters), "slowest_lane_iters": iters,
         "wall_ms": wall_ms, "wall_ms_under_profiler": sum(prof_walls) * 1e3,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-        "fan_kernel_ms": fan_ms, "fan_share_of_busy": fan_ms / busy_ms,
-        "fan_launches": launches, "fan_kernels_in_trace": len(fan),
-        "fan_us_per_launch": fan_ms * 1e3 / len(fan),
         "device_kernels": len(kernels),
         "device_kernels_per_iteration": len(kernels) / sum(iters),
         "trace": os.path.relpath(path, ROOT),
     }
+    if has_fan:
+        r.update({
+            "fan_kernel_ms": fan_ms, "fan_share_of_busy": fan_ms / busy_ms,
+            "fan_launches": launches, "fan_kernels_in_trace": len(fan),
+            "fan_us_per_launch": fan_ms * 1e3 / len(fan)})
+    return r
 
 
 def main(argv=None):
@@ -128,8 +169,8 @@ def main(argv=None):
                          f"[{'|'.join(CELLS)}]")
     info = gpu_info()
     loop = ClosedLoop(CELLS[name])
-    batches = (loop.cell.batch, 1) if loop.cell.batch1_latency \
-        else (loop.cell.batch,)
+    batches = (loop.cell.batch,) if loop.cell.batch1_steps is None \
+        else (loop.cell.batch, 1)
     for batch in batches:
         r = profile_batch(loop, batch)
         r["device"] = info["name"]

@@ -1,6 +1,8 @@
 """On-card tests of the port's CUDA kernels (mpc_tpu_torch/csrc/fused_psi.cu:
 K1, the Pacejka fan, K2, the kinematic fan, and K3, the augmented-Lagrangian
-fan, all three instances of the phased kernel).
+fan, all three instances of the phased kernel), and of the AL-iLQR path on
+the card (the LQT solves, an iteration that never waits for the card, the
+controller's default device).
 
 They need an NVIDIA GPU and nvcc and skip without them. This module imports
 neither jax nor the JAX package, so it also runs where jax is not installed:
@@ -14,7 +16,8 @@ import torch
 
 from mpc_tpu_torch.config import AlmConfig, PanocConfig
 from mpc_tpu_torch.control.mpc import (STATE_CONSTRAINT_OFFSETS,
-                                       build_vehicle_controller)
+                                       build_vehicle_controller,
+                                       build_vehicle_ilqr_controller)
 from mpc_tpu_torch.kernels.check import compare_fan
 from mpc_tpu_torch.models.params import VehicleParams
 from mpc_tpu_torch.ops import fused_psi as fp
@@ -410,3 +413,80 @@ def test_phased_kernel_refuses_an_oversize_shape(cuda, kernel):
     with pytest.raises(ValueError, match="shared memory"):
         wrapper(u, y0, long_tab, pvec, n_horiz, 4, 0.0125, 1.0)
     assert wrapper.launches == before
+
+
+# ---------------------------------------------------------------------------
+# AL-iLQR: no kernel of its own, batched torch ops on the card
+# ---------------------------------------------------------------------------
+
+def _lqt_batch(B, N, seed):
+    """Drawn well-posed LQT problems with the cross term, (B, N, ...)."""
+    rng = np.random.default_rng(seed)
+    n, m = 6, 2
+
+    def psd(k, scale):
+        M = rng.normal(size=(B, N, k, k))
+        return scale * (M @ np.swapaxes(M, -1, -2) / k + np.eye(k))
+
+    A = np.eye(n) + 0.1 * rng.normal(size=(B, N, n, n))
+    args = [rng.normal(size=(B, n)), A, 0.5 * rng.normal(size=(B, N, n, m)),
+            0.1 * rng.normal(size=(B, N, n)), psd(n, 0.5),
+            0.1 * rng.normal(size=(B, N, n)), psd(m, 1.0),
+            0.1 * rng.normal(size=(B, N, m)), psd(n, 1.0)[:, 0],
+            0.1 * rng.normal(size=(B, n)), 0.1 * rng.normal(size=(B, N, m, n))]
+    return [torch.as_tensor(a, dtype=torch.float32) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 64])
+def test_lqt_solves_on_card_match_cpu(cuda, B):
+    from mpc_tpu_torch.solver.lqr import (lqt_solve_parallel,
+                                          lqt_solve_sequential)
+    args = _lqt_batch(B, 40, seed=B)
+    for fn in (lqt_solve_sequential, lqt_solve_parallel):
+        cpu = fn(*args[:10], P=args[10])
+        gpu = fn(*(a.to(cuda) for a in args[:10]), P=args[10].to(cuda))
+        for f in ("xs", "us", "Ko", "ko"):
+            np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(),
+                                       getattr(cpu, f).numpy(), rtol=0,
+                                       atol=1e-4, err_msg=f"{fn.__name__} {f}")
+
+
+@pytest.mark.cuda
+def test_ilqr_iteration_never_waits_for_the_card(cuda):
+    ctrl = build_vehicle_ilqr_controller(
+        n_horiz=8, bound_state_constraints=True,
+        alm_cfg=AlmConfig(delta=1e-3, max_iter=8, sigma_0=1e3,
+                          penalty_factor=5.0), device=cuda)
+    B = 4
+    carry = ctrl.init_carry(B)
+    y0 = torch.zeros((B, 6), device=cuda)
+    y0[:, 3] = torch.linspace(0.3, 0.9, B, device=cuda)
+    param = {"y0": y0, "p": VehicleParams(),
+             "centerline": straight_centerline(100, device=cuda)}
+    st, iterate, cond, result = ctrl.solve.prepare_inner(
+        param, carry.U, carry.lam, torch.full_like(carry.lam, 1e3))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            st = iterate(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res = result(st)
+    assert bool(torch.isfinite(res.cost).all())
+    assert res.iterations.min().item() >= 1
+
+
+@pytest.mark.cuda
+def test_ilqr_controller_defaults_to_the_card(cuda):
+    ctrl = build_vehicle_ilqr_controller(n_horiz=4, model="simplified")
+    assert ctrl.device.type == "cuda"
+    carry = ctrl.init_carry(2)
+    assert carry.U.is_cuda
+    y0 = torch.tensor([[0.0, 0.05, 0.1, 0.4], [0.0, 0.0, 0.0, 0.5]],
+                      device=cuda)
+    out = ctrl.step(carry, {"y0": y0, "p": VehicleParams(),
+                            "centerline": straight_centerline(100,
+                                                              device=cuda)})
+    assert out.u0.is_cuda and bool(out.result.converged.all())
