@@ -3,14 +3,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --timing
 
-It drives the port's five paths. Three go each through its own fan kernel
-of csrc/fused_psi.cu, all three instances of one phased kernel: the
-headline (Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2)
-and ss_n40 (bounded state constraints through the ALM general path, N=40;
-K3). ilqr_n40 (config 2: the same constrained OCP through AL-iLQR) runs no
-kernel of its own, and etc (config 3: event-triggered MPC over the
-headline's controller) runs K1. Phases, each of which fails the run with a
-nonzero exit:
+It drives the port's seven paths. Four go each through its own fan kernel
+of csrc/fused_psi.cu, all instances of one phased kernel: the headline
+(Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2), ss_n40
+(bounded state constraints through the ALM general path, N=40; K3) and
+config 5 (the randomized scenario suite, one road per lane; K1 at a road
+stride, "K1 roads"). ilqr_n40 (config 2: the same constrained OCP through
+AL-iLQR) runs no kernel of its own, etc (config 3: event-triggered MPC over
+the headline's controller) runs K1, and config 4 (the two-car game, each
+car on its lane's road) runs K1 roads. Phases, each of which fails the run
+with a nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
@@ -25,16 +27,24 @@ nonzero exit:
    default and non-default vehicle parameters; K2 at E in {1, 37, 5120},
    N=20, both roads; K3 at E in {1, 37, 1280}, N=40, on the lane-change
    road, with multipliers in [0, 2] and penalties log-uniform over
-   [1e-1, 1e3] and [1e3, 1e9]. Then on fan inputs
-   captured from each path's first closed-loop steps, at the shapes the path
-   gives its kernel: candidate fans (5 x batch lanes), whose L-BFGS
-   candidates are not projected onto the box, and init pairs (2 x batch).
-   K1: every call of 3 steps at batch 1024 (E=5120, 2048). K2: every call of
-   2 steps at batch 1024 (E=5120, 2048). K3: 2 steps at batch 256 (E=1280,
-   512); its plain version is slow at N=40, so at most 40 calls per shape
-   are checked, evenly spaced, which takes in the first call of the first
-   outer iteration of the first step and the last call of the last outer
-   iteration of each step. A lane beyond the bar is excused only where the
+   [1e-1, 1e3] and [1e3, 1e9]; K1 roads on roads of random_scenarios (a
+   mix of straight, arc and lane-change roads, one per scenario) from the
+   scenarios' initial states, K lanes per road (the road stride, the lanes
+   over the roads): E=1 and 37 at K=1, E=35 and 10240 at K=5, E=38 and
+   10240 at K=2. Then on fan inputs captured from each path's first
+   closed-loop steps, at the shapes the path gives its kernel: candidate
+   fans (5 x batch lanes), whose L-BFGS candidates are not projected onto
+   the box, and init pairs (2 x batch). K1: every call of 3 steps of the
+   headline at batch 1024 (E=5120, 2048) and of 3 steps of config 5's
+   batch-1 loop (E=5, 2). K2: every call of 2 steps at batch 1024 (E=5120,
+   2048). K3: 2 steps at batch 256 (E=1280, 512); its plain version is slow
+   at N=40, so at most 40 calls per shape are checked, evenly spaced, which
+   takes in the first call of the first outer iteration of the first step
+   and the last call of the last outer iteration of each step. K1 roads: 2
+   steps of config 5 at batch 2048, both tiers (cheap tier E=10240, 4096;
+   straggler tier 5 and 2 x 64 x 2^j), and 2 steps of config 4's loop at
+   256 pairs (E=2560, 1024), at most 12 calls per shape of each, spaced
+   so. A lane beyond the bar is excused only where the
    plain version in float32 misses its own float64 value by the bar too;
    such lanes are counted, and must be under 1% of a check's lanes;
 4. timing: each kernel and its plain version on the first captured fan of
@@ -56,18 +66,26 @@ nonzero exit:
    ilqr_n40 shape under ``torch.cuda.set_sync_debug_mode("error")``, which
    raises on any host sync;
 6. the paths, each through ``mpc_tpu_torch.bench`` with every launch count
-   set to 0 just before it and read just after: the headline at batch 1024
+   set to 0 just before it and read just after (``road_launches`` counts
+   K1's launches on per-lane roads apart): the headline at batch 1024
    (5 warm-up, 20 timed steps, then the batch-1 loop over 50 steps), config
-   1 at batch 1024 (4 warm-up, 10 timed steps), ss_n40 at batch 256 (3
-   warm-up, 3 timed steps: cut from the cell's 3 + 6 for the script's
-   time, see ``SMOKE_DEPTH``), ilqr_n40 at batch 256 (4 warm-up, 6 timed
-   steps, then the batch-1 loop over 3 + 10 steps), etc at batch 1024 (4
-   warm-up, 12 timed steps). A path's kernel must have launched at least
-   once per PANOC iteration run (the slowest lane's, summed over steps);
-   ilqr_n40 must launch none. Every state must be finite, the mean
-   converged fraction >= 0.99 (headline, config 1, etc) or >= 0.98 (ss_n40,
+   1 at batch 1024 (4 warm-up, 10 timed steps), ss_n40 at batch 256 (2
+   warm-up, 2 timed steps), ilqr_n40 at batch 256 (2 warm-up, 4 timed
+   steps, then the batch-1 loop over 2 + 6 steps), etc at batch 1024 (4
+   warm-up, 12 timed steps), config 5 at batch 2048 (an untimed 2-step
+   pass, 10 timed steps in two tiers, then the batch-1 loop on scenario 0's
+   road over 3 + 10 steps), config 4 at 256 pairs (a warm loop and one
+   timed loop of 10 steps, then the payoff line); ss_n40, ilqr_n40 and the
+   batch-1 loop of config 5 and config 4's timed loops are cut from their
+   cells' depth for the script's time (``SMOKE_DEPTH``; widths are never
+   cut). A path's kernel must have
+   launched at least once per PANOC iteration run (the slowest lane's,
+   summed over the controller's steps; both tiers for config 5); ilqr_n40
+   must launch none. Every state must be finite, the mean converged
+   fraction >= 0.99 (headline, config 1, etc, config 5) or >= 0.98 (ss_n40,
    ilqr_n40, whose converged lanes must also meet the constraints to delta
-   = 1e-3), and etc's mean trigger fraction in (0, 1].
+   = 1e-3), etc's mean trigger fraction in (0, 1], and some pair of config
+   4 must change lane.
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -94,10 +112,16 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 SUBSTEPS, TS, S = 4, 0.05, 100
 EXCUSED_MAX_SHARE = 0.01
 K3_MAX_CALLS = 40           # captured K3 calls checked per shape
-# (warm-up, timed) steps of a path driven at less than its cell's depth:
-# ss_n40's steps take 14-22 s each on the H100, and the script must leave
-# room within its time limit for the AL-iLQR path
-SMOKE_DEPTH = {"ss_n40": (3, 3)}
+ROADS_MAX_CALLS = 12        # captured K1 roads calls checked per shape
+# The depth of the paths driven at less than their cells': the fields of
+# the cell replaced. ss_n40's steps take 14-22 s each on the H100 and
+# ilqr_n40's 5-7 s (4 s at batch 1); with configs 5 and 4 the script would
+# take about 780 s of its 1200 s, so those two are cut further, config 4
+# runs one timed loop, and config 5's batch-1 loop runs 3 + 10 steps
+SMOKE_DEPTH = {"ss_n40": dict(n_warmup=2, n_steps=2),
+               "ilqr_n40": dict(n_warmup=2, n_steps=4, batch1_steps=(2, 6)),
+               "config5": dict(batch1_steps=(3, 10)),
+               "config4": dict(n_loops=1)}
 
 
 def fail(msg):
@@ -128,9 +152,12 @@ def check(tag, psi, grad, u, y0, cltab, pvec, args, model="pacejka",
 
 
 def drawn_inputs(E, n_horiz, sd, road, seed):
-    """Inputs inside the solver's box, driving forward: drive d in [0, 1],
-    steering in [-0.32, 0.32] (max_steer); the paths' own inputs, which
-    leave the box, are checked after these."""
+    """``(u, y0, centerline)``: inputs inside the solver's box, driving
+    forward: drive d in [0, 1], steering in [-0.32, 0.32] (max_steer); the
+    paths' own inputs, which leave the box, are checked after these.
+    ``road`` names one road for every lane, or is ``("scenarios", K)``:
+    E / K roads of ``random_scenarios``, lane e on road e // K and starting
+    from its scenario's initial state."""
     import numpy as np
     import torch
     from mpc_tpu_torch.bench import lane_change_road
@@ -144,14 +171,21 @@ def drawn_inputs(E, n_horiz, sd, road, seed):
     y0[:, 1] = rng.uniform(-0.1, 0.1, E)
     y0[:, 2] = rng.uniform(-0.3, 0.3, E)
     y0[:, 3] = rng.uniform(0.2, 1.0, E)
+    u = torch.as_tensor(u, device="cuda")
+    if isinstance(road, tuple):
+        from mpc_tpu_torch.sim.scenarios import random_scenarios
+        K = road[1]
+        sc = random_scenarios(E // K, S, generator=torch.Generator(
+            ).manual_seed(seed), device="cuda")
+        return (u, sc.y0.repeat_interleave(K, dim=0).contiguous(),
+                sc.centerline)
     # the straight and circle roads pass through the origin heading along +x
     # (the circle of radius 5 about (0, 5) at its lowest point), the
     # lane-change road starts there too
     cl = {"straight": straight_centerline, "circle": circle_centerline,
           "lane change": lambda n, device: lane_change_road(device)}[road](
               S, device="cuda")
-    return (torch.as_tensor(u, device="cuda"),
-            torch.as_tensor(y0, device="cuda"), cl)
+    return u, torch.as_tensor(y0, device="cuda"), cl
 
 
 def drawn_al(E, n_horiz, log_sigma, seed):
@@ -171,31 +205,69 @@ def drawn_al(E, n_horiz, log_sigma, seed):
             torch.zeros((m,), device="cuda"))
 
 
-def capture_fan_inputs(name, cell, steps):
+class Capture(NamedTuple):
+    """Fan calls captured from the first closed-loop steps of a path."""
+    cell: str            # a cell of mpc_tpu_torch.bench
+    steps: int           # its closed-loop steps run
+    shapes: tuple        # the fan sizes it must give: candidate fan, init pair
+    exact: bool = True   # it gives no other sizes
+    batch1: bool = False  # the cell's batch-1 loop, not its batched run
+
+
+def capture_fan_inputs(name, source):
     """The inputs of every call of the fan wrapper ``fp.<name>`` in the
-    first ``steps`` closed-loop steps of ``cell``, as the path gives them:
-    ``[(step, args), ...]`` in call order, each ``args`` cloned."""
+    first ``source.steps`` closed-loop steps of ``source``, as the path gives
+    them: ``[(step, args), ...]`` in call order, each ``args`` cloned. For
+    the scenario suite the steps are its two-tier steps, for the two-car
+    game the steps of its loop; ``step`` numbers the controller steps (a
+    suite step's cheap and straggler passes are two)."""
     import torch
-    from mpc_tpu_torch.bench import ClosedLoop
+    from mpc_tpu_torch import bench
     from mpc_tpu_torch.ops import fused_psi as fp
+    cell = getattr(bench, source.cell)
     wrapper = getattr(fp, name)
-    calls, step = [], [0]
+    # a recorded controller's steps number the calls of the suite and the
+    # game; the closed loop counts its own (and an earlier commit's bench,
+    # timed by this script, has no StepRecord)
+    calls, step, records = [], [0], []
 
     def recording(*args):
-        calls.append((step[0], tuple(a.clone() if torch.is_tensor(a) else a
-                                     for a in args)))
+        calls.append((step[0] + sum(len(r.iters) for r in records),
+                      tuple(a.clone() if torch.is_tensor(a) else a
+                            for a in args)))
         return wrapper(*args)
 
     # the wrapper counts its launches on whatever fp.<name> names; the
     # capture's launches land here and are dropped
-    recording.launches = 0
+    recording.launches = recording.road_launches = 0
     setattr(fp, name, recording)
     try:
-        loop = ClosedLoop(cell)
-        ys, carry = loop.start(cell.batch)
         with torch.no_grad():
-            for step[0] in range(steps):
-                ys, carry, _ = loop.step(ys, carry)
+            if isinstance(cell, getattr(bench, "SuiteCell", ())):
+                from mpc_tpu_torch.sim.scenarios import \
+                    run_scenario_suite_two_tier
+                records.append(bench.StepRecord())
+                sc, params, f_d, full, cheap = bench.suite_setup(
+                    cell, records[0])
+                if source.batch1:
+                    step1, ys, carry = bench.suite_batch1(sc, params, f_d,
+                                                          full)
+                    for _ in range(source.steps):
+                        ys, carry = step1(ys, carry)
+                else:
+                    run_scenario_suite_two_tier(full, cheap, f_d, sc, params,
+                                                source.steps,
+                                                cell.straggler_pad)
+            elif isinstance(cell, getattr(bench, "TwoCarCell", ())):
+                records.append(bench.StepRecord())
+                game, y0a, y0b = bench.two_car_setup(
+                    dataclasses.replace(cell, n_sim=source.steps), records[0])
+                game(y0a, y0b, 1, 1)
+            else:
+                loop = bench.ClosedLoop(cell)
+                ys, carry = loop.start(cell.batch)
+                for step[0] in range(source.steps):
+                    ys, carry, _ = loop.step(ys, carry)
         torch.cuda.synchronize()
     finally:
         setattr(fp, name, wrapper)
@@ -215,10 +287,12 @@ def spread(calls, cap):
     return [calls[i] for i in sorted(keep)]
 
 
-def check_captured(kernel, calls, split, tag_extra=""):
+def check_captured(kernel, calls, split):
     """Run the kernel ``kernel`` on each captured call and hold all of one
     shape together against the plain version. ``split(args) -> (u, y0,
-    cltab, pvec, al, fan_args)`` names a call's operands."""
+    cltab, pvec, al, fan_args)`` names a call's operands. The calls of one
+    shape share one road, or, on per-lane roads, are joined with their
+    roads (each call's lanes are whole scenarios of the same K)."""
     import torch
     reports = []
     by_E = {}
@@ -226,12 +300,15 @@ def check_captured(kernel, calls, split, tag_extra=""):
         by_E.setdefault(args[0].shape[0], []).append(args)
     for E, group in sorted(by_E.items(), reverse=True):
         u0, y00, cl0, pv0, al0, fa0 = split(group[0])
-        us, y0s, psis, grads, als = [], [], [], [], []
+        per_lane = cl0.dim() == 3
+        us, y0s, psis, grads, als, cls = [], [], [], [], [], []
         for args in group:
             u, y0, cltab, pvec, al, fan_args = split(args)
-            if fan_args != fa0 or not torch.equal(cltab, cl0) \
-                    or not torch.equal(pvec, pv0):
+            if fan_args != fa0 or not torch.equal(pvec, pv0) \
+                    or cltab.shape != cl0.shape \
+                    or (not per_lane and not torch.equal(cltab, cl0)):
                 fail("the captured fan calls differ in road or parameters")
+            cls.append(cltab)
             psi, grad = kernel(*args)
             torch.cuda.synchronize()
             us.append(u)
@@ -244,7 +321,8 @@ def check_captured(kernel, calls, split, tag_extra=""):
             al = (torch.cat([a[0] for a in als]),
                   torch.cat([a[1] for a in als]), *al0[2:])
         reports.append((E, len(group), torch.cat(psis), torch.cat(grads),
-                        torch.cat(us), torch.cat(y0s), cl0, pv0, fa0, al))
+                        torch.cat(us), torch.cat(y0s),
+                        torch.cat(cls) if per_lane else cl0, pv0, fa0, al))
     return reports
 
 
@@ -390,7 +468,7 @@ def serial_chain(k, wrapper, fp, info):
         cltab, pvec = fp.fan_params(cl, VehicleParams())
         al = drawn_al(1, n, (-1, 3), seed=k.seed + 100) if k.al else None
         args = (u, y0, cltab, pvec, *(al or ()), n, SUBSTEPS, TS / SUBSTEPS,
-                1.0)
+                1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
         times[n] = launch_ms(lambda: wrapper(*args))
     (n1, t1), (n2, t2) = sorted(times.items())
     chain = n2 * (t2 - t1) / (n2 - n1)
@@ -400,39 +478,62 @@ def serial_chain(k, wrapper, fp, info):
     return t2, chain
 
 
-def drive(cell, wrapper, fp, min_conv):
+def drive(cell, wrapper, fp, min_conv, roads=False):
     """Drive one path through ``mpc_tpu_torch.bench`` with every launch
-    count set to 0 just before it; fail unless its kernel ran on it, or,
-    for a path without a kernel (``wrapper`` None), unless none ran."""
+    count set to 0 just before it; fail unless its kernel ran on it (and,
+    with ``roads``, on per-lane roads), or, for a path without a kernel
+    (``wrapper`` None), unless none ran. ``min_conv`` None: the path has no
+    convergence limit. Returns the counts, keyed by wrapper, and K1's
+    launches on per-lane roads as ``road_launches``."""
     from mpc_tpu_torch.bench import run
     if cell.name in SMOKE_DEPTH:
-        n_warmup, n_steps = SMOKE_DEPTH[cell.name]
-        cell = dataclasses.replace(cell, n_warmup=n_warmup, n_steps=n_steps)
+        cell = dataclasses.replace(cell, **SMOKE_DEPTH[cell.name])
     wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
                 fp.al_fan_value_and_grad)
     for w in wrappers:
         w.launches = 0
+    fp.fan_value_and_grad.road_launches = 0
     r = run(cell)
     launches = {w.__name__: w.launches for w in wrappers}
+    launches["road_launches"] = fp.fan_value_and_grad.road_launches
     r["fan_kernel_launches"] = launches
     print(json.dumps({"bench": dict(r, cell=cell.name)}))
-    line = (f"path {cell.name}: {r['solves_per_s']:.1f} solves/s, step p50 "
-            f"{r['p50_step_latency_s'] * 1e3:.2f} ms p99 "
-            f"{r['p99_step_latency_s'] * 1e3:.2f} ms, converged "
-            f"{r['mean_converged_fraction']:.4f}, inner iters mean "
-            f"{r['inner_iters_mean']:.2f} max {r['inner_iters_max']}, "
-            f"inner iterations run {r['inner_iterations_run']}, launches "
-            f"{launches}")
+    ms = lambda key: f"{r[key] * 1e3:.2f} ms"        # noqa: E731
+    parts = [f"{r['solves_per_s']:.1f} solves/s"]
+    if "p50_step_latency_s" in r:
+        parts.append(f"step p50 {ms('p50_step_latency_s')} p99 "
+                     f"{ms('p99_step_latency_s')}")
+    if "mean_converged_fraction" in r:
+        parts.append(f"converged {r['mean_converged_fraction']:.4f}")
+    if "inner_iters_mean" in r:
+        parts.append(f"inner iters mean {r['inner_iters_mean']:.2f} max "
+                     f"{r['inner_iters_max']}")
+    if "n_stragglers_per_step" in r:
+        parts.append(f"wall {r['wall_s']:.3f} s, stragglers per step "
+                     f"{r['n_stragglers_per_step']}, cheap s "
+                     f"{[round(t, 3) for t in r['cheap_s_per_step']]}, "
+                     f"straggler s "
+                     f"{[round(t, 3) for t in r['straggler_s_per_step']]}")
+    if "pair_steps_per_s" in r:
+        parts.append(f"{r['pair_steps_per_s']:.1f} pair-steps/s, wall per "
+                     f"loop {r['wall_s_per_loop']:.3f} s, mean lane changes "
+                     f"of A {r['mean_lane_changes_a']:.4f}, pairs with a "
+                     f"lane change {r['pairs_with_lane_change']:.4f}, "
+                     f"payoffs {r['decisions_per_s']:.1f} decisions/s at "
+                     f"batch {r['payoff_batch']}")
+    parts.append(f"inner iterations run {r['inner_iterations_run']}, "
+                 f"launches {launches}")
     if "single_solve_p50_s" in r:
-        line += (f", batch-1 p50 {r['single_solve_p50_s'] * 1e3:.2f} ms p99 "
-                 f"{r['single_solve_p99_s'] * 1e3:.2f} ms")
+        parts.append(f"batch-1 p50 {ms('single_solve_p50_s')} p99 "
+                     f"{ms('single_solve_p99_s')}")
     if "outer_iters_mean" in r:
-        line += (f", outer iters mean {r['outer_iters_mean']:.3f} max "
-                 f"{r['outer_iters_max']}, max violation on converged lanes "
-                 f"{r['max_violation_converged']:.3e}")
+        parts.append(f"outer iters mean {r['outer_iters_mean']:.3f} max "
+                     f"{r['outer_iters_max']}, max violation on converged "
+                     f"lanes {r['max_violation_converged']:.3e}")
     if "mean_trigger_fraction" in r:
-        line += f", mean trigger fraction {r['mean_trigger_fraction']:.4f}"
-    print(line)
+        parts.append(f"mean trigger fraction "
+                     f"{r['mean_trigger_fraction']:.4f}")
+    print(f"path {cell.name}: " + ", ".join(parts))
     if wrapper is None:
         if any(launches.values()):
             fail(f"{cell.name}: a path without a fan kernel launched one: "
@@ -442,9 +543,13 @@ def drive(cell, wrapper, fp, min_conv):
         if own < max(1, r["inner_iterations_run"]):
             fail(f"{cell.name}: the path launched its fan kernel {own} "
                  f"times for {r['inner_iterations_run']} PANOC iterations")
+        if roads and not launches["road_launches"]:
+            fail(f"{cell.name}: the path never launched K1 on per-lane "
+                 f"roads")
     if not r["states_finite"]:
         fail(f"{cell.name}: non-finite plant state in the closed loop")
-    if not r["mean_converged_fraction"] >= min_conv:
+    if min_conv is not None \
+            and not r["mean_converged_fraction"] >= min_conv:
         fail(f"{cell.name}: mean converged fraction "
              f"{r['mean_converged_fraction']} < {min_conv}")
     if r.get("max_violation_converged", 0.0) > cell.alm_cfg.delta:
@@ -454,6 +559,9 @@ def drive(cell, wrapper, fp, min_conv):
             and not 0.0 < r["mean_trigger_fraction"] <= 1.0:
         fail(f"{cell.name}: mean trigger fraction "
              f"{r['mean_trigger_fraction']} outside (0, 1]")
+    if "pairs_with_lane_change" in r \
+            and not r["pairs_with_lane_change"] > 0.0:
+        fail(f"{cell.name}: no pair changed lane (a frozen fixed point)")
     return launches
 
 
@@ -622,30 +730,44 @@ class Kernel(NamedTuple):
     sd: int              # state dimension
     drawn: tuple         # ((E, road, VehicleParams kwargs, log_sigma), ...)
     seed: int            # of the drawn inputs; the AL operands use seed + 100
-    steps: int           # closed-loop steps whose fan calls are captured
-    shapes: tuple        # the path's fan sizes: candidate fan, init pair
+    captures: tuple      # Capture, ...: the first is timed at its shapes
     cap: Optional[int]   # captured calls checked per shape (None: all)
     n_plain: int         # timed runs of the plain version
     min_conv: float      # the path's least mean converged fraction
+    count: str = "launches"   # the wrapper's count of this kernel's launches
 
 
 KERNELS = (
+    # config 5's batch-1 loop runs K1 on scenario 0's road
     Kernel("K1", "fused_psi_fan", "K1, model=pacejka", "fan_value_and_grad",
            "pacejka", False, "HEADLINE", 12, 6,
            tuple((E, road, {}, None) for E in (1, 37, 5120)
                  for road in ("straight", "circle"))
            + ((37, "circle", dict(mass=0.25, cm1=0.4), None),),
-           0, 3, (5120, 2048), None, 50, 0.99),
+           0, (Capture("HEADLINE", 3, (5120, 2048)),
+               Capture("CONFIG5", 3, (5, 2), batch1=True)), None, 50, 0.99),
     Kernel("K2", "fused_psi_fan_kin", "K2, model=simplified",
            "kin_fan_value_and_grad", "simplified", False, "CONFIG1", 20, 4,
            tuple((E, road, {}, None) for E in (1, 37, 5120)
                  for road in ("straight", "circle")),
-           100, 2, (5120, 2048), None, 10, 0.99),
+           100, (Capture("CONFIG1", 2, (5120, 2048)),), None, 10, 0.99),
     Kernel("K3", "fused_psi_fan_al", "K3, al_ls", "al_fan_value_and_grad",
            "pacejka", True, "SS_N40", 40, 6,
            tuple((E, "lane change", {}, ls) for E in (1, 37, 1280)
                  for ls in ((-1, 3), (3, 9))),
-           200, 2, (1280, 512), K3_MAX_CALLS, 5, 0.98),
+           200, (Capture("SS_N40", 2, (1280, 512)),), K3_MAX_CALLS, 5, 0.98),
+    # lanes per road K = 1 (a road for every lane, the most roads a block
+    # stages), 5 (a candidate fan) and 2 (an init pair); config 5's
+    # straggler tier gives further sizes, 5 and 2 x 64 x 2^j
+    Kernel("K1 roads", "fused_psi_fan_roads",
+           "K1 on per-lane roads (road stride K)", "fan_value_and_grad",
+           "pacejka", False, "CONFIG5", 12, 6,
+           tuple((E, ("scenarios", K), {}, None)
+                 for E, K in ((1, 1), (37, 1), (35, 5), (10240, 5), (38, 2),
+                              (10240, 2))),
+           300, (Capture("CONFIG5", 2, (10240, 4096), exact=False),
+                 Capture("CONFIG4", 2, (2560, 1024))),
+           ROADS_MAX_CALLS, 5, 0.99, count="road_launches"),
 )
 
 
@@ -654,17 +776,17 @@ def split(k, args):
     u, y0, cltab, pvec = args[:4]
     if k.al:
         return u, y0, cltab, pvec, tuple(args[4:9]), tuple(args[9:])
-    return u, y0, cltab, pvec, None, tuple(args[4:])
+    return u, y0, cltab, pvec, None, tuple(args[4:9])
 
 
 def kernel_phase(k, fp, bench, info, timing=False):
     """Phases 3 and 4 for one kernel: its drawn and captured checks, then
-    the timing of kernel and plain version at the path's fan shapes (with
-    ``timing``, no checks and the kernel alone). Returns a dict: the checks'
-    ``lanes``, ``excused``, ``max_abs_err``, ``max_rel_err`` and
-    ``lane_term_needed``; ``ms``, ``plain_ms``, ``bound_ms`` and
-    ``bound_by`` at the candidate-fan shape; ``ms_by_E``;
-    ``single_lane_ms`` and ``serial_chain_ms``."""
+    the timing of kernel and plain version at the fan shapes of its first
+    capture (with ``timing``, no checks, that capture alone and the kernel
+    alone). Returns a dict: the checks' ``lanes``, ``excused``,
+    ``max_abs_err``, ``max_rel_err`` and ``lane_term_needed``; ``ms``,
+    ``plain_ms``, ``bound_ms`` and ``bound_by`` at the candidate-fan shape;
+    ``ms_by_E``; ``single_lane_ms`` and ``serial_chain_ms``."""
     import torch
     from mpc_tpu_torch.models.params import VehicleParams
     wrapper = getattr(fp, k.wrapper)
@@ -679,34 +801,45 @@ def kernel_phase(k, fp, bench, info, timing=False):
             if k.al else None
         psi, grad = wrapper(u, y0, cltab, pvec, *(al or ()), *fan_args)
         torch.cuda.synchronize()
-        tag = f"{k.label} E={E} {road}" + (" p*" if p_kw else "") \
+        tag = f"{k.label} E={E} " \
+            + (f"{cltab.shape[0]} scenario roads, K={E // cltab.shape[0]}"
+               if cltab.dim() == 3 else road) \
+            + (" p*" if p_kw else "") \
             + (f" sigma in 1e{log_sigma}" if k.al else "")
         reports.append(check(tag, psi, grad, u, y0, cltab, pvec, fan_args,
                              model=k.model, al=al))
 
-    cell = getattr(bench, k.cell)
-    t0 = time.perf_counter()
-    captured = capture_fan_inputs(k.wrapper, cell, k.steps)
-    by_E = {}
-    for c in captured:
-        by_E.setdefault(c[1][0].shape[0], []).append(c)
-    print(f"{k.label}: captured {len(captured)} fan calls of {k.steps} "
-          f"closed-loop steps of {cell.name} at batch {cell.batch} in "
-          f"{time.perf_counter() - t0:.1f} s ("
-          + ", ".join(f"{len(v)} at E={E}" for E, v in sorted(by_E.items()))
-          + (f"); checking at most {k.cap} per shape" if k.cap else ")"))
-    if sorted(by_E) != sorted(k.shapes):
-        fail(f"{cell.name} gave its fan shapes {sorted(by_E)}, not "
-             f"{sorted(k.shapes)}")
-    out = {}
-    if not timing:
+    timed = None
+    for source in k.captures[:1] if timing else k.captures:
+        cell = getattr(bench, source.cell)
+        t0 = time.perf_counter()
+        captured = capture_fan_inputs(k.wrapper, source)
+        by_E = {}
+        for c in captured:
+            by_E.setdefault(c[1][0].shape[0], []).append(c)
+        where = f"{cell.name}{' batch-1 loop' if source.batch1 else ''}"
+        print(f"{k.label}: captured {len(captured)} fan calls of "
+              f"{source.steps} closed-loop steps of {where} in "
+              f"{time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{len(v)} at E={E}"
+                          for E, v in sorted(by_E.items()))
+              + (f"); checking at most {k.cap} per shape" if k.cap else ")"))
+        if not set(source.shapes) <= set(by_E) \
+                or (source.exact and sorted(by_E) != sorted(source.shapes)):
+            fail(f"{where} gave its fan shapes {sorted(by_E)}, not "
+                 f"{sorted(source.shapes)}")
+        timed = timed or (source, by_E)
+        if timing:
+            continue
         calls = [c for v in by_E.values()
                  for c in (spread(v, k.cap) if k.cap else v)]
-        for E, n, psi, grad, u, y0, cltab, pvec, fa, al in check_captured(
-                wrapper, calls, lambda args: split(k, args)):
-            reports.append(check(f"{k.label} {cell.name} E={E} ({n} calls)",
+        for E, n, psi, grad, u, y0, cltab, pvec, fa, al in \
+                check_captured(wrapper, calls, lambda args: split(k, args)):
+            reports.append(check(f"{k.label} {where} E={E} ({n} calls)",
                                  psi, grad, u, y0, cltab, pvec, fa,
                                  model=k.model, al=al))
+    out = {}
+    if not timing:
         out = dict(
             lanes=sum(r["lanes"] for r in reports),
             excused=sum(r["excused"] for r in reports),
@@ -719,25 +852,27 @@ def kernel_phase(k, fp, bench, info, timing=False):
               f"{out['max_rel_err']:.3e} of the lane's scale, lane term "
               f"needed {out['lane_term_needed']:.3e}")
 
+    source, by_E = timed
     out["ms_by_E"] = {}
-    for E in k.shapes:
+    for E in source.shapes:
         args = by_E[E][0][1]
         u, y0, cltab, pvec, al, fa = split(k, args)
         ms, plain_ms = time_pair(
             f"{k.label} E={E}", lambda: wrapper(*args),
             None if timing else
-            lambda: fp.fan_value_and_grad_reference(u, y0, cltab, pvec, *fa,
-                                                    model=k.model, al=al),
+            lambda: fp.fan_value_and_grad_reference(
+                u, y0, cltab, pvec, *fa, model=k.model, al=al),
             k.n_plain, info)
         psi, grad = wrapper(*args)
+        # the operands include every road's table, each read once
         bound_ms, bound_by, nbytes, ops, former_ms = fan_bound(
-            k.model, k.al, E, k.n_horiz, SUBSTEPS, cltab.shape[0],
+            k.model, k.al, E, k.n_horiz, SUBSTEPS, cltab.shape[-2],
             [u, y0, cltab, pvec, *(al or ())], [psi, grad])
         print(f"bound {k.label} E={E}: {nbytes} bytes, {ops} operations -> "
               f"{bound_ms:.5f} ms ({bound_by}); kernel at "
               f"{bound_ms / ms:.2%} of it; former count {former_ms:.5f} ms")
         out["ms_by_E"][E] = ms
-        if E == k.shapes[0]:
+        if E == source.shapes[0]:
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
     out["single_lane_ms"], out["serial_chain_ms"] = serial_chain(
@@ -767,10 +902,33 @@ def main():
     t_start = time.perf_counter()
 
     # ---- 2. build ---------------------------------------------------------
+    # the fan kernels (nvcc) and config 5's scenario generator (g++), each
+    # from its source in this checkout, built at the same time
+    import threading
     from mpc_tpu_torch.kernels import build as kbuild
     t0 = time.perf_counter()
+    native = {}
+
+    def build_native():
+        try:
+            from mpc_tpu_torch.io import native_scenarios
+            native_scenarios.load()
+        except Exception as e:      # reported after the kernels' build
+            native["error"] = e
+
+    # an earlier commit timed by this script has no generator to build
+    has_native = os.path.exists(os.path.join(HERE, "mpc_tpu_torch", "io",
+                                             "native_scenarios.py"))
+    thread = threading.Thread(target=build_native)
+    if has_native:
+        thread.start()
     b = kbuild.build("fused_psi")
     kbuild.load_fused_psi()
+    if has_native:
+        thread.join()
+        if "error" in native:
+            fail(f"the native scenario generator did not build: "
+                 f"{native['error']}")
     print(f"build: fused_psi {'compiled' if b['built'] else 'cached'} in "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(b['path'], HERE)}")
@@ -781,37 +939,61 @@ def main():
 
     # ---- 3, 4. kernel checks and timing -----------------------------------
     from mpc_tpu_torch.ops import fused_psi as fp
-    measured = [kernel_phase(k, fp, bench, info, timing) for k in KERNELS]
-    print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
     if timing:
+        # a kernel whose path this checkout's bench lacks (an earlier
+        # commit's, timed by this script) is left out
+        kernels = [k for k in KERNELS if hasattr(bench, k.cell)]
+        for k in KERNELS:
+            if k not in kernels:
+                print(f"timing {k.label}: skipped, no path {k.cell} in this "
+                      f"checkout")
+        measured = [kernel_phase(k, fp, bench, info, timing)
+                    for k in kernels]
+        print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"timing": [
             {"name": k.name, "ms_by_E": m["ms_by_E"],
              "single_lane_ms": m["single_lane_ms"],
              "serial_chain_ms": m["serial_chain_ms"]}
-            for k, m in zip(KERNELS, measured)]}))
+            for k, m in zip(kernels, measured)]}))
         return
+    measured = [kernel_phase(k, fp, bench, info) for k in KERNELS]
+    print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. the LQT solves and the no-sync check --------------------------
     lqt_phase(info)
     no_sync_phase(bench)
 
     # ---- 6. the paths -----------------------------------------------------
-    launches = [drive(getattr(bench, k.cell), getattr(fp, k.wrapper), fp,
-                      k.min_conv)[k.wrapper] for k in KERNELS]
-    ilqr_launches = drive(bench.ILQR_N40, None, fp, 0.98)
-    etc_launches = drive(bench.ETC, fp.fan_value_and_grad, fp, 0.99)
+    def own(k, counts):
+        """Kernel ``k``'s own launches among ``counts``: K1's on one road
+        are the wrapper's launches less those on per-lane roads."""
+        if k.count == "road_launches":
+            return counts["road_launches"]
+        return counts[k.wrapper] - (counts["road_launches"]
+                                    if k.wrapper == "fan_value_and_grad"
+                                    else 0)
+
+    runs = {k.cell: drive(getattr(bench, k.cell), getattr(fp, k.wrapper),
+                          fp, k.min_conv, roads=k.count == "road_launches")
+            for k in KERNELS}
+    runs["ILQR_N40"] = drive(bench.ILQR_N40, None, fp, 0.98)
+    runs["ETC"] = drive(bench.ETC, fp.fan_value_and_grad, fp, 0.99)
+    runs["CONFIG4"] = drive(bench.CONFIG4, fp.fan_value_and_grad, fp, None,
+                            roads=True)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
-    for k, n, m in zip(KERNELS, launches, measured):
+    for k, m in zip(KERNELS, measured):
         # no single PyTorch call computes the fan (rollout, argmin, stage
         # cost and adjoint), so there is no library time
         rows.append({
             "name": k.name, "variant": k.variant, "route": "cuda",
             "source": "mpc_tpu_torch/csrc/fused_psi.cu",
             "replaces": "mpc_tpu/ops/fused_psi.py:321",
-            "launches": n, "launches_etc": etc_launches[k.wrapper],
-            "launches_ilqr_n40": ilqr_launches[k.wrapper],
+            "launches": own(k, runs[k.cell]),
+            **{f"launches_{c.lower()}": own(k, runs[c])
+               for c in ("ETC", "ILQR_N40", "CONFIG5", "CONFIG4")
+               if c != k.cell},
             "max_abs_err": m["max_abs_err"],
             "max_rel_err": m["max_rel_err"],
             "lane_term_needed": m["lane_term_needed"],

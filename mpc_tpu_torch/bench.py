@@ -30,11 +30,28 @@ NVIDIA GPU, one closed loop per cell.
   road, batch 1024, y0 = [0, U(-0.1, 0.1), 0, U(0.3, 1.0), 0, 0], 4 warm-up
   and 12 timed steps. Its fan is kernel K1; it also reports the mean
   fraction of lanes that trigger a solve.
+- ``config5``: the randomized scenario suite (examples/bench_suite.py:
+  307-364): 2048 scenarios of the native generator (seed 0, 100-point
+  roads), one road per lane, N=12, ``AlmConfig(eps=1e-4)``, rolled out 10
+  steps in two tiers (``sim/scenarios.py:run_scenario_suite_two_tier``): a
+  cheap pass ``PanocConfig(lbfgs_memory=12, max_iter=40)`` over every lane,
+  then the lanes it left unconverged again at ``max_iter=150``, padded to
+  64 x 2^j lanes; one untimed 2-step pass first. Then a batch-1 loop on
+  scenario 0's road (5 warm-up, 40 timed steps). Its fan is K1 on per-lane
+  roads ("K1 roads"; the batch-1 loop's is K1 on one road).
+- ``config4``: the two-car game (examples/bench_suite.py:218-304): 256
+  overtake pairs (``np.random.default_rng(7)``), both cars in lane 1, 10
+  steps of iterated best response and one MPC solve per car, each car on
+  its lane's road, N=12, ``AlmConfig(eps=1e-4)``,
+  ``PanocConfig(lbfgs_memory=12, max_iter=150)``; one warm loop, then the
+  median of 3 timed loops; then the lane payoffs alone at batch 4096 with 4
+  cars (``default_rng(1)``), the median of 20 timed calls. Its fan is K1 on
+  per-lane roads.
 
 ``solves/s`` is all the timed solves over all the timed wall time; the root
 ``bench.py`` divides the batch by the p50 step.
 
-    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc]
+    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc|config5|config4]
 
 Prints a detail JSON line (with the card's name and power limit) and, last,
 the result JSON line. Without a CUDA device it exits with an error: a
@@ -57,12 +74,16 @@ from mpc_tpu_torch.config import AlmConfig, IlqrConfig, PanocConfig
 from mpc_tpu_torch.control.event_triggered import EventTriggeredController
 from mpc_tpu_torch.control.mpc import (build_vehicle_controller,
                                        build_vehicle_ilqr_controller)
+from mpc_tpu_torch.decision.game_theory import Cars, Ego, lane_payoffs
 from mpc_tpu_torch.models.bicycle import pacejka_dynamics, simplified_dynamics
 from mpc_tpu_torch.models.integrators import discretize
 from mpc_tpu_torch.models.params import VehicleParams
+from mpc_tpu_torch.ops import fused_psi as fp
 from mpc_tpu_torch.ops.bezier import (bezier_centerline,
                                       lane_change_control_points)
 from mpc_tpu_torch.ops.road import straight_centerline
+from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
+from mpc_tpu_torch.sim.two_car import make_two_car_game
 
 REALTIME_BUDGET_S = 0.05   # Ts, the control interval
 BATCH, N_HORIZ, CENTERLINE_POINTS = 1024, 12, 100
@@ -182,7 +203,53 @@ ETC = Cell(
     "etc", "pacejka", N_HORIZ, AlmConfig(eps=1e-4),
     PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300), _straight, etc_states,
     1024, 4, 12, trigger_threshold=1e-2)
-CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40, ILQR_N40, ETC)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SuiteCell:
+    """The randomized scenario suite in two tiers: scenarios of the native
+    generator, one road per lane."""
+    name: str
+    n_horiz: int
+    alm_cfg: AlmConfig
+    full_cfg: PanocConfig
+    cheap_cfg: PanocConfig
+    batch: int
+    size: int
+    seed: int
+    n_sim: int
+    n_warm_steps: int
+    straggler_pad: int
+    batch1_steps: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoCarCell:
+    """The two-car game over scenario pairs, and its payoff line."""
+    name: str
+    n_horiz: int
+    alm_cfg: AlmConfig
+    solver_cfg: PanocConfig
+    pairs: int
+    n_sim: int
+    n_loops: int
+    payoff_batch: int
+    payoff_cars: int
+    payoff_calls: int
+
+
+CONFIG5 = SuiteCell(
+    "config5", N_HORIZ, AlmConfig(eps=1e-4),
+    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=150),
+    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=40), batch=2048,
+    size=CENTERLINE_POINTS, seed=0, n_sim=10, n_warm_steps=2,
+    straggler_pad=64, batch1_steps=(5, 40))
+CONFIG4 = TwoCarCell(
+    "config4", N_HORIZ, AlmConfig(eps=1e-4),
+    PanocConfig(lbfgs_memory=N_HORIZ, max_iter=150), pairs=256, n_sim=10,
+    n_loops=3, payoff_batch=4096, payoff_cars=4, payoff_calls=20)
+CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40, ILQR_N40, ETC,
+                             CONFIG5, CONFIG4)}
 
 
 class ClosedLoop:
@@ -191,10 +258,7 @@ class ClosedLoop:
     ``out`` the controller's step output (``out.result`` the solve's)."""
 
     def __init__(self, cell: Cell = HEADLINE):
-        if not torch.cuda.is_available():
-            raise RuntimeError("mpc_tpu_torch.bench: no CUDA device; the "
-                               "benchmark runs only on a GPU")
-        dev = self.device = torch.device("cuda")
+        dev = self.device = _cuda()
         self.cell = cell
         self.params = VehicleParams()
         self.f_d = discretize(pacejka_dynamics if cell.model == "pacejka"
@@ -228,10 +292,265 @@ class ClosedLoop:
         return self.f_d(ys, out.u0, self.params), out.carry, out
 
 
+class StepRecord:
+    """Per controller step, in call order: the slowest lane's PANOC
+    iterations (``iters``) and the converged fraction (``converged``),
+    tensors on the card (no sync); the controller's tag (``tiers``) and the
+    K1 kernel's launches in the step (``fan_launches``)."""
+
+    def __init__(self):
+        self.iters, self.converged = [], []
+        self.tiers, self.fan_launches = [], []
+
+    def clear(self):
+        for items in (self.iters, self.converged, self.tiers,
+                      self.fan_launches):
+            items.clear()
+
+    def launches_by_tier(self, start: int = 0) -> dict:
+        """Per two-tier step from the ``start``-th record: the fan launches
+        of its cheap pass and of its straggler pass (0 where no lane
+        straggled), ``{"cheap": [...], "straggler": [...]}``."""
+        out = {"cheap": [], "straggler": []}
+        for tier, n in zip(self.tiers[start:], self.fan_launches[start:]):
+            if tier == "cheap":
+                out["cheap"].append(n)
+                out["straggler"].append(0)
+            else:
+                out["straggler"][-1] += n
+        return out
+
+
+class _Recorded:
+    """A controller whose every step is added to a ``StepRecord`` under the
+    tag ``tier``."""
+
+    def __init__(self, ctrl, record: StepRecord, tier: str = ""):
+        self.ctrl, self.record, self.device = ctrl, record, ctrl.device
+        self.tier = tier
+
+    def init_carry(self, *args, **kwargs):
+        return self.ctrl.init_carry(*args, **kwargs)
+
+    def step(self, carry, param):
+        n0 = fp.fan_value_and_grad.launches
+        out = self.ctrl.step(carry, param)
+        self.record.iters.append(out.result.inner_iterations.max())
+        self.record.converged.append(out.result.converged.float().mean())
+        self.record.tiers.append(self.tier)
+        self.record.fan_launches.append(fp.fan_value_and_grad.launches - n0)
+        return out
+
+
+def _cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("mpc_tpu_torch.bench: no CUDA device; the "
+                           "benchmark runs only on a GPU")
+    return torch.device("cuda")
+
+
+def _batch1_latency(step, ys, carry, n_warm, n_timed) -> dict:
+    """A batch-1 closed loop: ``n_warm`` steps, then the host-clock time of
+    each of ``n_timed`` steps, each ended by a sync."""
+    for _ in range(n_warm):
+        ys, carry = step(ys, carry)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        ys, carry = step(ys, carry)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    lat = np.asarray(lat)
+    return {"single_solve_p50_s": float(np.percentile(lat, 50)),
+            "single_solve_p99_s": float(np.percentile(lat, 99)),
+            "single_solve_steps": n_timed,
+            "realtime_budget_s": REALTIME_BUDGET_S,
+            "single_solve_finite": bool(torch.isfinite(ys).all())}
+
+
+def suite_setup(cell: SuiteCell, record: StepRecord):
+    """Config 5's scenarios, plant and recorded controllers on the card:
+    ``(scenarios, params, f_d, full, cheap)``."""
+    from mpc_tpu_torch.io.native_scenarios import generate_scenarios
+    dev = _cuda()
+    sc = generate_scenarios(cell.seed, cell.batch, cell.size, device=dev)
+    params = VehicleParams()
+    f_d = discretize(pacejka_dynamics)
+    full, cheap = (_Recorded(build_vehicle_controller(
+        n_horiz=cell.n_horiz, alm_cfg=cell.alm_cfg, panoc_cfg=cfg,
+        device=dev), record, tier) for cfg, tier in (
+            (cell.full_cfg, "straggler"), (cell.cheap_cfg, "cheap")))
+    return sc, params, f_d, full, cheap
+
+
+def suite_batch1(sc, params, f_d, full):
+    """Config 5's batch-1 loop: scenario 0 alone on its road, an (S, 2)
+    centerline (K1's shared-road launch), with the full-budget controller
+    from a cold carry. ``(step, ys, carry)``, ``step(ys, carry) -> (ys,
+    carry)``."""
+    cl0 = sc.centerline[0]
+
+    def step(ys, carry):
+        out = full.step(carry, {"y0": ys, "p": params, "centerline": cl0})
+        return f_d(ys, out.u0, params), out.carry
+
+    return step, sc.y0[:1], full.init_carry(1)
+
+
+@torch.no_grad()
+def run_suite(cell: SuiteCell = CONFIG5) -> dict:
+    """Config 5: the two-tier suite (an untimed pass of ``n_warm_steps``,
+    then the timed ``n_sim`` steps), then the batch-1 loop on scenario 0's
+    road with the full-budget controller."""
+    record = StepRecord()
+    sc, params, f_d, full, cheap = suite_setup(cell, record)
+
+    def suite(n_sim):
+        return run_scenario_suite_two_tier(full, cheap, f_d, sc, params,
+                                           n_sim, cell.straggler_pad)
+
+    suite(cell.n_warm_steps)
+    torch.cuda.synchronize()
+    k0 = len(record.iters)
+    t0 = time.perf_counter()
+    state, conv = suite(cell.n_sim)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = state["stats"]
+    tiers = record.launches_by_tier(k0)
+    r = {
+        "batch": cell.batch, "n_horiz": cell.n_horiz, "n_steps": cell.n_sim,
+        "cheap_max_iter": cell.cheap_cfg.max_iter,
+        "full_max_iter": cell.full_cfg.max_iter,
+        "wall_s": wall, "solves_per_s": cell.batch * cell.n_sim / wall,
+        "mean_converged_fraction": float(conv.mean()),
+        "converged_per_step": conv.mean(axis=0).tolist(),
+        "cheap_s_per_step": st["cheap_s"],
+        "straggler_s_per_step": st["straggler_s"],
+        "n_stragglers_per_step": st["n_stragglers"],
+        "fan_launches_cheap_per_step": tiers["cheap"],
+        "fan_launches_straggler_per_step": tiers["straggler"],
+    }
+    finite = bool(torch.isfinite(state["ys"]).all())
+    n_warm, n_timed = cell.batch1_steps
+    k = len(record.iters)
+    r.update(_batch1_latency(*suite_batch1(sc, params, f_d, full), n_warm,
+                             n_timed))
+    r["single_solve_iters_mean"] = float(
+        torch.stack(record.iters[k + n_warm:]).float().mean())
+    r["states_finite"] = finite and r.pop("single_solve_finite")
+    r["inner_iterations_run"] = int(torch.stack(record.iters).sum())
+    return r
+
+
+def overtake_pairs(pairs: int):
+    """Config 4's pairs, drawn as examples/bench_suite.py:236-244 draws
+    them: A fast in lane 1, B slow and close ahead of it."""
+    rng = np.random.default_rng(7)
+    y0a = np.zeros((pairs, 6), np.float32)
+    y0a[:, 1] = rng.uniform(-0.02, 0.02, pairs)
+    y0a[:, 3] = rng.uniform(0.7, 1.0, pairs)
+    y0b = np.zeros((pairs, 6), np.float32)
+    y0b[:, 0] = rng.uniform(0.08, 0.25, pairs)
+    y0b[:, 1] = rng.uniform(-0.02, 0.02, pairs)
+    y0b[:, 3] = rng.uniform(0.08, 0.2, pairs)
+    return y0a, y0b
+
+
+def payoff_inputs(batch: int, cars: int, device=None):
+    """The payoff line's egos and cars, drawn as
+    examples/bench_suite.py:283-292 draws them."""
+    rng = np.random.default_rng(1)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    egos = Ego(x=t(rng.uniform(-10, 10, batch)),
+               v=t(rng.uniform(5, 20, batch)),
+               lane=torch.ones((batch,), dtype=torch.int32, device=device))
+    others = Cars(x=t(rng.uniform(-50, 80, (batch, cars))),
+                  v=t(rng.uniform(0, 20, (batch, cars))),
+                  lane=t(rng.integers(1, 3, (batch, cars)), torch.int32),
+                  mask=torch.ones((batch, cars), dtype=torch.bool,
+                                  device=device))
+    return egos, others
+
+
+def two_car_setup(cell: TwoCarCell, record: StepRecord):
+    """Config 4's game and pairs on the card: ``(run, y0a, y0b)``."""
+    dev = _cuda()
+    params = VehicleParams()
+    ctrl = _Recorded(build_vehicle_controller(
+        n_horiz=cell.n_horiz, alm_cfg=cell.alm_cfg,
+        panoc_cfg=cell.solver_cfg, device=dev), record)
+    game = make_two_car_game(ctrl, discretize(pacejka_dynamics), params,
+                             n_sim=cell.n_sim)
+    y0a, y0b = (torch.as_tensor(a, device=dev)
+                for a in overtake_pairs(cell.pairs))
+    return game, y0a, y0b
+
+
+@torch.no_grad()
+def run_two_car(cell: TwoCarCell = CONFIG4) -> dict:
+    """Config 4: one warm loop, the median of ``n_loops`` timed loops, then
+    the payoff line."""
+    record = StepRecord()
+    game, y0a, y0b = two_car_setup(cell, record)
+    out = game(y0a, y0b, 1, 1)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(cell.n_loops):
+        t0 = time.perf_counter()
+        out = game(y0a, y0b, 1, 1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    # lane changes, the step-1 decision from lane 1 included
+    # (examples/bench_suite.py:262-266)
+    lanes_a = out.lanes_a.cpu().numpy()
+    full = np.concatenate([np.ones((cell.pairs, 1), lanes_a.dtype), lanes_a],
+                          axis=1)
+    changes = np.abs(np.diff(full, axis=1)) > 0
+    B, n = cell.pairs, cell.n_sim
+    r = {
+        "batch_pairs": B, "n_horiz": cell.n_horiz, "n_steps": n,
+        "pair_steps_per_s": B * n / wall,
+        "solves_per_s": 2 * B * n / wall,
+        "wall_s_per_loop": wall, "wall_s_loops": walls,
+        # every solve of every loop (the loops repeat the same work)
+        "mean_converged_fraction": float(torch.stack(
+            record.converged).mean()),
+        "mean_lane_changes_a": float(changes.mean()),
+        "pairs_with_lane_change": float(changes.any(axis=1).mean()),
+        "states_finite": bool(torch.isfinite(out.ys_a).all()
+                              and torch.isfinite(out.ys_b).all()),
+        "inner_iterations_run": int(torch.stack(record.iters).sum()),
+    }
+    egos, others = payoff_inputs(cell.payoff_batch, cell.payoff_cars,
+                                 y0a.device)
+    lane_payoffs(egos, others)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(cell.payoff_calls):
+        t0 = time.perf_counter()
+        lane_payoffs(egos, others)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(lat, 50))
+    r.update({"payoff_batch": cell.payoff_batch, "payoff_p50_s": p50,
+              "decisions_per_s": cell.payoff_batch / p50})
+    return r
+
+
 @torch.no_grad()
 def run(cell: Cell = HEADLINE) -> dict:
     """Run the cell's closed loop at its batch (and its batch-1 loop, where
     it has one) on the card; return the measurements."""
+    if isinstance(cell, SuiteCell):
+        return run_suite(cell)
+    if isinstance(cell, TwoCarCell):
+        return run_two_car(cell)
     loop = ClosedLoop(cell)
     sync = torch.cuda.synchronize
     iters_run = []          # per step: the slowest lane's inner iterations
@@ -279,25 +598,9 @@ def run(cell: Cell = HEADLINE) -> dict:
     if trig:
         r["mean_trigger_fraction"] = float(torch.stack(trig).mean())
     if cell.batch1_steps is not None:
-        n_warm, n_timed = cell.batch1_steps
-        y1, c1 = loop.start(1)
-        for _ in range(n_warm):
-            y1, c1, _ = step(y1, c1)
-        sync()
-        lat = []
-        for _ in range(n_timed):
-            t0 = time.perf_counter()
-            y1, c1, _ = step(y1, c1)
-            sync()
-            lat.append(time.perf_counter() - t0)
-        lat = np.asarray(lat)
-        r.update({
-            "single_solve_p50_s": float(np.percentile(lat, 50)),
-            "single_solve_p99_s": float(np.percentile(lat, 99)),
-            "single_solve_steps": n_timed,
-            "realtime_budget_s": REALTIME_BUDGET_S,
-        })
-        finite = finite and bool(torch.isfinite(y1).all())
+        r.update(_batch1_latency(lambda y, c: step(y, c)[:2],
+                                 *loop.start(1), *cell.batch1_steps))
+        finite = finite and r.pop("single_solve_finite")
     r["states_finite"] = finite
     r["inner_iterations_run"] = int(torch.stack(iters_run).sum())
     return r

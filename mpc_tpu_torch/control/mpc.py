@@ -66,9 +66,11 @@ class MpcStepOut(NamedTuple):
 class MpcController(nn.Module):
     """A built MPC controller: ``step(carry, param)`` over a lane batch.
 
-    ``param`` is the per-step parameter dict: ``y0`` (B, state_dim), ``p``
-    (VehicleParams, shared) and ``centerline`` (S, 2, shared), on the
-    controller's ``device``.
+    ``param`` is the per-step parameter dict, on the controller's
+    ``device``: ``y0`` (B, state_dim), ``p`` (VehicleParams, shared) and
+    ``centerline``, either (S, 2), one road shared by every lane, or
+    (B, S, 2), one road per lane (the roads of a scenario suite, or each
+    car's lane in the two-car game).
     """
 
     def __init__(self, problem: Problem, solve: Callable, n_horiz: int,

@@ -69,3 +69,45 @@ def etc_carry_from_numpy(leaves: Mapping[str, np.ndarray],
 def centerline_from_numpy(cl: np.ndarray, device=None) -> torch.Tensor:
     """A centerline (S, 2) as a float32 tensor."""
     return torch.as_tensor(np.array(cl, np.float32), device=device)
+
+
+def scenario_batch_from_numpy(y0: np.ndarray, centerline: np.ndarray,
+                              obstacles: np.ndarray, device=None):
+    """A port ``ScenarioBatch`` from the JAX ``ScenarioBatch`` leaves as
+    numpy arrays (``np.asarray(sc.y0)`` etc.): y0 (B, 6), centerline
+    (B, S, 2), obstacles (B, K, 4)."""
+    from mpc_tpu_torch.sim.scenarios import ScenarioBatch
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return ScenarioBatch(y0=f32(y0), centerline=f32(centerline),
+                         obstacles=f32(obstacles))
+
+
+def ego_from_numpy(x: np.ndarray, v: np.ndarray, lane: np.ndarray,
+                   device=None):
+    """A port ``Ego`` (fields (B,)) from the JAX ``Ego`` leaves as numpy
+    arrays; a scalar JAX ego becomes a batch of one."""
+    from mpc_tpu_torch.decision.game_theory import Ego
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype).reshape(-1), device=device)
+
+    return Ego(x=t(x, np.float32), v=t(v, np.float32),
+               lane=t(lane, np.int32))
+
+
+def cars_from_numpy(x: np.ndarray, v: np.ndarray, lane: np.ndarray,
+                    mask: np.ndarray, device=None):
+    """A port ``Cars`` (fields (B, M)) from the JAX ``Cars`` leaves as numpy
+    arrays; the cars of a single JAX scenario (M,) become a batch of one."""
+    from mpc_tpu_torch.decision.game_theory import Cars
+
+    def t(a, dtype):
+        a = np.array(a, dtype)
+        return torch.as_tensor(a.reshape((1, -1)) if a.ndim == 1 else a,
+                               device=device)
+
+    return Cars(x=t(x, np.float32), v=t(v, np.float32),
+                lane=t(lane, np.int32), mask=t(mask, bool))

@@ -8,6 +8,10 @@
 //   K2  model="simplified", the kinematic bicycle        (mpc_fused_psi_fan_kin)
 //   K3  model="pacejka" with the AL term of the bounded  (mpc_fused_psi_fan_al)
 //       state constraints, reached through make_vehicle_al_multi
+// K1 also takes one road per scenario ("K1 roads"): the same instance with
+// a runtime road stride K > 0, where lane e reads road e / K of an
+// (R, n_cl, 6) table stack (the K candidates of a scenario are adjacent
+// lanes). Stride 0 is the one shared road.
 // Same mathematics as the plain PyTorch version mpc_tpu_torch/ops/
 // fused_psi.py:fan_value_and_grad_reference; the algorithm is the batched
 // transcription _fan_phased_transcription, held against autograd on the CPU.
@@ -47,6 +51,10 @@
 //    k = N-1 down to 0. The gradient goes out through shared memory in one
 //    coalesced pass.
 // Above 48 KB of shared memory the launcher opts in to the card's limit.
+// The centerline tables a block reads are staged in its shared memory: the
+// one shared table, or, at road stride K, the roads e0 / K .. (e0 + L - 1) / K
+// of its lanes e0 .. e0 + L - 1, at most (L - 1) / K + 2 of them
+// (ph_roads); lane e's table is slot e / K - e0 / K.
 //
 // Numerics: native atan2f/atanf/tanf/sinf/cosf (no --use_fast_math). Every
 // state and every psi term is evaluated in the plain version's operation
@@ -477,15 +485,21 @@ struct PhLayout {
     size_t cl, p, off, lo, up, u, x, T, g, cost, pen, total;
 };
 
+// The most roads a block of L lanes reads at road stride rs (0: shared).
+__host__ __device__ __forceinline__ int ph_roads(int L, int rs) {
+    return rs > 0 ? (L - 1) / rs + 2 : 1;
+}
+
 __host__ __device__ __forceinline__ PhLayout ph_layout(int sd, bool al, int L,
-                                                       int n_horiz, int n_cl) {
+                                                       int n_horiz, int n_cl,
+                                                       int rs) {
     PhLayout y;
     const size_t m = al ? (size_t)sd * n_horiz : 0;
     y.np = n_horiz | 1;
     y.xp = (n_horiz + 1) | 1;
     const size_t pairs = (size_t)L * y.np;
-    y.cl = 0;                                   // centerline table, n_cl x 6
-    y.p = y.cl + (size_t)n_cl * 6;              // parameters
+    y.cl = 0;                                   // centerline tables, n_cl x 6 each
+    y.p = y.cl + (size_t)ph_roads(L, rs) * n_cl * 6;  // parameters
     y.off = y.p + N_PARAMS;                     // AL: offsets (sd)
     y.lo = y.off + (al ? sd : 0);               // AL: d_lo (m)
     y.up = y.lo + m;                            // AL: d_up (m)
@@ -565,6 +579,8 @@ __device__ __forceinline__ void stage_jacobian(const float xs[M::SD], float d,
 }
 
 // lam, sig (E, m) and off (SD,), lo, up (m,) are read only when AL is true.
+// cltab is one (n_cl, 6) table at road stride rs = 0, else (R, n_cl, 6) with
+// lane e on road e / rs.
 template <class M, bool AL>
 __global__ void __launch_bounds__(PH_THREADS)
 fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
@@ -575,10 +591,10 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
                      const float* __restrict__ off,
                      const float* __restrict__ lo,
                      const float* __restrict__ up, float* __restrict__ psi,
-                     float* __restrict__ grad, int E, Cfg c, int L) {
+                     float* __restrict__ grad, int E, Cfg c, int L, int rs) {
     constexpr int SD = M::SD, NX = SD - 2;
     const int N = c.n_horiz, n2 = 2 * N, m = SD * N;
-    const PhLayout y = ph_layout(SD, AL, L, N, c.n_cl);
+    const PhLayout y = ph_layout(SD, AL, L, N, c.n_cl, rs);
     extern __shared__ float smem[];
     float* s_cl = smem + y.cl;
     float* s_p = smem + y.p;
@@ -595,8 +611,12 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
     const int tid = threadIdx.x;
     const int e0 = blockIdx.x * L;
     const int nl = min(L, E - e0);            // lanes of this block
+    const int tab = c.n_cl * 6;               // floats of one road's table
+    const int r0 = rs > 0 ? e0 / rs : 0;      // the block's first road
+    const int nr = rs > 0 ? (e0 + nl - 1) / rs - r0 + 1 : 1;
 
-    for (int i = tid; i < c.n_cl * 6; i += PH_THREADS) s_cl[i] = cltab[i];
+    for (int i = tid; i < nr * tab; i += PH_THREADS)
+        s_cl[i] = cltab[(size_t)r0 * tab + i];
     for (int i = tid; i < N_PARAMS; i += PH_THREADS) s_p[i] = pvec[i];
     if (AL) {
         for (int i = tid; i < SD; i += PH_THREADS) s_off[i] = off[i];
@@ -641,9 +661,10 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
             xe[i] = xl[i * LX + 1];
             g[i] = 0.f;
         }
-        // the stage cost and its gradient at the end state
-        const int j = nearest(xe[0], xe[1], s_cl, c.n_cl);
-        s_cost[pi] = stage_cost<M>(xe, d, dl, s_cl + 6 * j, c, g);
+        // the stage cost and its gradient at the end state, on the lane's road
+        const float* cl = rs > 0 ? s_cl + ((e0 + l) / rs - r0) * tab : s_cl;
+        const int j = nearest(xe[0], xe[1], cl, c.n_cl);
+        s_cost[pi] = stage_cost<M>(xe, d, dl, cl + 6 * j, c, g);
         if (AL) {
             // the penalties 0.5 sigma r^2, each rounded as the plain version
             // rounds it; d/dx_i = sigma r 2 x_i
@@ -746,9 +767,9 @@ static bool valid_shape(int E, int n_horiz, int n_cl, int substeps) {
 // current device: the largest L <= PH_MAX_LANES whose grid has at least
 // one block per SM (L = 1 where E is too small for that) and
 // whose shared memory fits the device's opt-in limit.
-static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int* lanes,
-                   size_t* smem) {
-    if (!valid_shape(E, n_horiz, n_cl, 1)) return (int)cudaErrorInvalidValue;
+static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int rs,
+                   int* lanes, size_t* smem) {
+    if (!valid_shape(E, n_horiz, n_cl, 1) || rs < 0) return (int)cudaErrorInvalidValue;
     int dev, n_sm, smem_max;
     cudaError_t rc = cudaGetDevice(&dev);
     if (rc == cudaSuccess)
@@ -758,7 +779,8 @@ static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int* lanes,
                                     cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (rc != cudaSuccess) return (int)rc;
     for (int L = PH_MAX_LANES; L >= 1; L /= 2) {
-        const size_t bytes = ph_layout(sd, al, L, n_horiz, n_cl).total * sizeof(float);
+        const size_t bytes =
+            ph_layout(sd, al, L, n_horiz, n_cl, rs).total * sizeof(float);
         if (bytes > (size_t)smem_max) continue;
         if ((E + L - 1) / L >= n_sm || L == 1) {
             *lanes = L;
@@ -776,11 +798,11 @@ static int launch_phased(const float* u, const float* y0, const float* cltab,
                          float* psi, float* grad, int E, int n_horiz, int n_cl,
                          int substeps, double h, float v_ref, float w0,
                          float w1, float w2, float w3, float w4, float w5,
-                         void* stream) {
+                         int rs, void* stream) {
     if (!valid_shape(E, n_horiz, n_cl, substeps)) return (int)cudaErrorInvalidValue;
     int L;
     size_t smem;
-    int rc = ph_plan(M::SD, AL, E, n_horiz, n_cl, &L, &smem);
+    int rc = ph_plan(M::SD, AL, E, n_horiz, n_cl, rs, &L, &smem);
     if (rc != 0) return rc;
     if (smem > 48 * 1024) {
         rc = (int)cudaFuncSetAttribute(fused_psi_fan_phased<M, AL>,
@@ -791,7 +813,7 @@ static int launch_phased(const float* u, const float* y0, const float* cltab,
     const Cfg c = make_cfg(n_horiz, n_cl, substeps, h, v_ref, w0, w1, w2, w3, w4, w5);
     const int grid = (E + L - 1) / L;
     fused_psi_fan_phased<M, AL><<<grid, PH_THREADS, smem, (cudaStream_t)stream>>>(
-        u, y0, cltab, pvec, lam, sig, off, lo, up, psi, grad, E, c, L);
+        u, y0, cltab, pvec, lam, sig, off, lo, up, psi, grad, E, c, L, rs);
     return (int)cudaGetLastError();
 }
 
@@ -803,16 +825,19 @@ extern "C" {
 // off (sd,), lo, up (m,), m = sd * n_horiz. Each returns the cudaError_t of
 // the launch.
 
-// K1: Pacejka, sd = 6.
+// K1: Pacejka, sd = 6. road_stride 0: one shared road; K >= 1: cltab is
+// (R, n_cl, 6) and lane e reads road e / K.
 int mpc_fused_psi_fan(const float* u, const float* y0, const float* cltab,
                       const float* pvec, float* psi, float* grad, int E,
                       int n_horiz, int n_cl, int substeps, double h,
                       float v_ref, float w0, float w1, float w2, float w3,
-                      float w4, float w5, void* stream) {
+                      float w4, float w5, int road_stride, void* stream) {
+    if (road_stride < 0) return (int)cudaErrorInvalidValue;
     return launch_phased<Pacejka, false>(u, y0, cltab, pvec, nullptr, nullptr,
                                          nullptr, nullptr, nullptr, psi, grad,
                                          E, n_horiz, n_cl, substeps, h, v_ref,
-                                         w0, w1, w2, w3, w4, w5, stream);
+                                         w0, w1, w2, w3, w4, w5, road_stride,
+                                         stream);
 }
 
 // K2: kinematic bicycle, sd = 4.
@@ -824,7 +849,7 @@ int mpc_fused_psi_fan_kin(const float* u, const float* y0, const float* cltab,
     return launch_phased<Kinematic, false>(u, y0, cltab, pvec, nullptr, nullptr,
                                            nullptr, nullptr, nullptr, psi,
                                            grad, E, n_horiz, n_cl, substeps, h,
-                                           v_ref, w0, w1, w2, w3, w4, w5,
+                                           v_ref, w0, w1, w2, w3, w4, w5, 0,
                                            stream);
 }
 
@@ -839,18 +864,20 @@ int mpc_fused_psi_fan_al(const float* u, const float* y0, const float* cltab,
     return launch_phased<Pacejka, true>(u, y0, cltab, pvec, lam, sig, off, lo,
                                         up, psi, grad, E, n_horiz, n_cl,
                                         substeps, h, v_ref, w0, w1, w2, w3, w4,
-                                        w5, stream);
+                                        w5, 0, stream);
 }
 
 // The phased kernel's lanes per block and shared memory bytes for E lanes
 // of the model of state dimension sd (K1: sd = 6, al = 0; K2: sd = 4,
-// al = 0; K3: sd = 6, al = 1) on the current device; cudaErrorInvalidValue
-// for another sd or if the shape does not fit even at one lane per block.
+// al = 0; K3: sd = 6, al = 1) at road stride road_stride (0: one shared
+// road) on the current device; cudaErrorInvalidValue for another sd or if
+// the shape does not fit even at one lane per block.
 int mpc_fused_psi_fan_plan(int sd, int al, int E, int n_horiz, int n_cl,
-                           int* lanes, int* smem_bytes) {
+                           int road_stride, int* lanes, int* smem_bytes) {
     if (sd != Pacejka::SD && sd != Kinematic::SD) return (int)cudaErrorInvalidValue;
     size_t smem = 0;
-    const int rc = ph_plan(sd, al != 0, E, n_horiz, n_cl, lanes, &smem);
+    const int rc = ph_plan(sd, al != 0, E, n_horiz, n_cl, road_stride, lanes,
+                           &smem);
     *smem_bytes = (int)smem;
     return rc;
 }

@@ -79,9 +79,9 @@ def compare_fan(psi, grad, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     """Compare a kernel's ``psi (E,)`` and ``grad (E, 2N)`` on inputs
     ``u, y0`` with the plain version of the same variant, ``chunk`` lanes at
     a time. ``model`` and ``al = (lam (E, m), sigma (E, m), offsets, d_lo,
-    d_up)`` are those of :func:`fp.fan_value_and_grad_reference`. With
-    ``al``, the gradient's bar gains ``AL_LANE_RTOL`` times the lane's
-    largest entry.
+    d_up)`` are those of :func:`fp.fan_value_and_grad_reference`, and so
+    is a (R, S-1, 6) ``cltab`` of per-lane roads. With ``al``, the
+    gradient's bar gains ``AL_LANE_RTOL`` times the lane's largest entry.
 
     Returns the counts of lanes (``lanes``, ``beyond_bar``, ``excused``,
     ``failed``), the largest absolute errors over all lanes
@@ -97,6 +97,15 @@ def compare_fan(psi, grad, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     args = (n_horiz, substeps, h, v_ref, weights)
     gtol = dict(grad_tol, lane_rtol=AL_LANE_RTOL if al is not None else 0.0)
 
+    per_lane = cltab.dim() == 3
+    if per_lane:
+        # each lane's own table, so that any subset of lanes keeps its roads
+        cltab = fp._lane_tables(cltab, u.shape[0])
+
+    def lanes_cl(s):
+        """The table of the lanes ``s``: one road each, or the shared one."""
+        return cltab[s] if per_lane else cltab
+
     def lanes_al(s):
         """The AL operands of the lanes ``s`` (an index or a slice)."""
         if al is None:
@@ -108,7 +117,8 @@ def compare_fan(psi, grad, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     for a in range(0, u.shape[0], chunk):
         s = slice(a, a + chunk)
         psi_r, grad_r = fp.fan_value_and_grad_reference(
-            u[s], y0[s], cltab, pvec, *args, model=model, al=lanes_al(s))
+            u[s], y0[s], lanes_cl(s), pvec, *args, model=model,
+            al=lanes_al(s))
         d_psi, d_grad = (psi[s] - psi_r).abs(), (grad[s] - grad_r).abs()
         e_psi = max(e_psi, float(d_psi.max()))
         e_grad = max(e_grad, float(d_grad.max()))
@@ -139,8 +149,8 @@ def compare_fan(psi, grad, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
         if al64 is not None:
             al64 = tuple(t.double() for t in al64)
         psi_x, grad_x = fp.fan_value_and_grad_reference(
-            u[idx].double(), y0[idx].double(), cltab.double(), pvec.double(),
-            *args, model=model, al=al64)
+            u[idx].double(), y0[idx].double(), lanes_cl(idx).double(),
+            pvec.double(), *args, model=model, al=al64)
 
         def dist(p32, g32):
             return torch.maximum(_excess(p32.double(), psi_x, **psi_tol),

@@ -22,7 +22,8 @@ def vehicle_stage_cost(x: torch.Tensor, u: torch.Tensor,
           + c4 delta^2 + c5 d^2
 
     Speed is ``sqrt(vx^2 + vy^2)`` for the 6-state Pacejka model and ``|v|``
-    for the 4-state kinematic model.
+    for the 4-state kinematic model. ``centerline`` is (S, 2), shared, or
+    (B, S, 2), one road per lane.
     """
     err = compute_errors_ocp(x[:, :2], x[:, 2], centerline)
     if x.shape[1] >= 5:

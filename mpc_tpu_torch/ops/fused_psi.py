@@ -56,11 +56,41 @@ KERNEL_MAX_HORIZON = 64
 def make_cltab(centerline: torch.Tensor) -> torch.Tensor:
     """The (S-1, 6) selection table ``[nearest, previous, next]`` (x, y each)
     per candidate index: candidates 0..S-2, previous clamped at 0
-    (mpc_tpu/ops/fused_psi.py:158-166)."""
-    head = centerline[:-1]
-    prev = torch.cat([centerline[:1], centerline[:-2]], dim=0)
-    nxt = centerline[1:]
-    return torch.cat([head, prev, nxt], dim=1).contiguous()
+    (mpc_tpu/ops/fused_psi.py:158-166). A (R, S, 2) stack of roads gives
+    the (R, S-1, 6) stack of their tables."""
+    head = centerline[..., :-1, :]
+    prev = torch.cat([centerline[..., :1, :], centerline[..., :-2, :]],
+                     dim=-2)
+    nxt = centerline[..., 1:, :]
+    return torch.cat([head, prev, nxt], dim=-1).contiguous()
+
+
+def road_stride(cltab: torch.Tensor, E: int) -> int:
+    """The road stride of E lanes on ``cltab``: 0 for one shared (S-1, 6)
+    table; K = E / R for a (R, S-1, 6) stack, whose road r is read by the K
+    adjacent lanes r K .. r K + K - 1 (one scenario's candidates). A stack
+    must hold E / R lanes per road, a whole number; else ValueError."""
+    if not isinstance(cltab, torch.Tensor) or cltab.dim() not in (2, 3) \
+            or cltab.shape[-1] != 6:
+        raise ValueError("fan: cltab must be (S-1, 6) or (R, S-1, 6)")
+    return _lanes_per_road(E, cltab.shape[0]) if cltab.dim() == 3 else 0
+
+
+def _lanes_per_road(E: int, R: int) -> int:
+    if R < 1 or E % R:
+        raise ValueError(f"fan: {E} lanes on {R} roads: each road must "
+                         f"take the same whole number of lanes")
+    return max(E // R, 1)
+
+
+def _lane_tables(cltab: torch.Tensor, E: int):
+    """The table each of E lanes reads: the shared (S-1, 6) table as it is,
+    or, from a (R, S-1, 6) stack, road ``e // (E / R)`` for lane e as an
+    (E, S-1, 6) tensor."""
+    K = road_stride(cltab, E)
+    if not K:
+        return cltab
+    return cltab[torch.arange(E, device=cltab.device) // K]
 
 
 class _Params:
@@ -131,11 +161,19 @@ def _rk4_substeps(deriv, x, d, delta, p, h, substeps):
     return x
 
 
-def _nearest(px, py, cltab):
-    """Index (E,) of the nearest candidate; first index wins a tie."""
-    dx = px[:, None] - cltab[None, :, 0]
-    dy = py[:, None] - cltab[None, :, 1]
+def _nearest(px, py, tab):
+    """Index (E,) of the nearest candidate; first index wins a tie. ``tab``
+    is the shared (S-1, 6) table or the lanes' (E, S-1, 6) tables."""
+    dx = px[:, None] - tab[..., 0]
+    dy = py[:, None] - tab[..., 1]
     return torch.argmin(dx * dx + dy * dy, dim=1)
+
+
+def _selected(tab, idx):
+    """The rows ``tab[idx]`` of each lane's table, as 6 (E,) components."""
+    if tab.dim() == 2:
+        return tab[idx].unbind(dim=1)
+    return tab[torch.arange(idx.shape[0], device=idx.device), idx].unbind(dim=1)
 
 
 def _speed(x):
@@ -185,13 +223,13 @@ def _fan_total(u, y0, cltab, pvec, n_horiz, substeps, h, v_ref, weights,
                model, al):
     deriv, sd = _MODELS[model]
     p = _Params(pvec)
+    tab = _lane_tables(cltab, u.shape[0])
     x = tuple(y0[:, i] for i in range(sd))
     tot = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
     for k in range(n_horiz):
         d, delta = u[:, 2 * k], u[:, 2 * k + 1]
         x = _rk4_substeps(deriv, x, d, delta, p, h, substeps)
-        idx = _nearest(x[0], x[1], cltab)
-        pts = cltab[idx].unbind(dim=1)
+        pts = _selected(tab, _nearest(x[0], x[1], tab))
         tot = tot + _stage_cost(x, d, delta, pts, v_ref, weights)
         if al is not None:
             # the stage's six penalties after its cost, in the reference's
@@ -211,14 +249,18 @@ def fan_value_and_grad_reference(u: torch.Tensor, y0: torch.Tensor,
     """Plain PyTorch fan: ``(psi (E,), grad (E, 2N))``.
 
     ``u`` (E, 2N), ``y0`` (E, sd) with sd = 6 for ``model="pacejka"`` and 4
-    for ``"simplified"``, ``cltab`` (S-1, 6) from :func:`make_cltab`,
-    ``pvec`` (24,) from ``VehicleParams.to_kernel_vec``. ``al = (lam (E, m),
+    for ``"simplified"``, ``cltab`` from :func:`make_cltab`: (S-1, 6), one
+    road for every lane, or (R, S-1, 6), one road for each K = E / R
+    adjacent lanes (:func:`road_stride`: the K candidates of one scenario
+    share its road). ``pvec`` (24,) from
+    ``VehicleParams.to_kernel_vec``. ``al = (lam (E, m),
     sigma (E, m), offsets (sd,), d_lo (m,), d_up (m,))``, m = sd * N
     stage-major, adds the augmented-Lagrangian penalty. The SoA analogue of
     ``_batched_total_cost`` + ``_eval_xla`` (mpc_tpu/ops/fused_psi.py:204-294);
     the gradient is autograd of the lane sum (lanes are independent), with
     the nearest-point selection held constant.
     """
+    road_stride(cltab, u.shape[0])
     cltab, pvec, y0 = cltab.detach(), pvec.detach(), y0.detach()
     if al is not None:
         al = tuple(a.detach() for a in al)
@@ -442,7 +484,7 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
                               v_ref, weights, model="pacejka", al=None):
     """The phased kernel's algorithm in batched torch, no autograd: K1
     (``model="pacejka"``), K2 (``"simplified"``) and K3 (Pacejka with
-    ``al``).
+    ``al``); ``cltab`` as in :func:`fan_value_and_grad_reference`.
 
     Phase 1, serial over stages: roll out the states, keeping the N + 1
     stage boundary states and nothing else (the model's per-stage constants
@@ -463,6 +505,7 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
     sd = _MODELS[model][1]
     nx = sd - 2
     p = _Params(pvec)
+    tab = _lane_tables(cltab, u.shape[0])
     # phase 1
     xs = [tuple(y0[:, i] for i in range(sd))]
     for k in range(n_horiz):
@@ -476,7 +519,7 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
     for k in range(n_horiz):
         d, delta = u[:, 2 * k], u[:, 2 * k + 1]
         xe = xs[k + 1]
-        pts = cltab[_nearest(xe[0], xe[1], cltab)].unbind(dim=1)
+        pts = _selected(tab, _nearest(xe[0], xe[1], tab))
         costs.append(_stage_cost(xe, d, delta, pts, v_ref, weights))
         g = _stage_cost_vjp(xe, pts, v_ref, weights)
         pen = []
@@ -529,7 +572,9 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
          weights, al=None):
     """Check the inputs, then run the plain version (CPU tensor) or launch
     the kernel of ``model`` and ``al`` (CUDA tensor), counting the launch on
-    ``wrapper.launches``."""
+    ``wrapper.launches``. Per-lane roads (a 3-D ``cltab``) are taken by K1
+    alone, which counts them on ``wrapper.road_launches`` too; K2 and K3
+    raise on them."""
     if not isinstance(u, torch.Tensor) or u.dim() != 2:
         raise ValueError("fan: u must be a 2-D tensor (E, 2N)")
     E = u.shape[0]
@@ -539,11 +584,16 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
         raise ValueError("fan: weights must have 6 entries")
     _check("u", u, (E, 2 * n_horiz), dev)
     _check("y0", y0, (E, sd), dev)
-    if cltab.dim() != 2:
-        raise ValueError("fan: cltab must be (S-1, 6)")
-    _check("cltab", cltab, (cltab.shape[0], 6), dev)
+    if isinstance(cltab, torch.Tensor) and cltab.dim() == 3 \
+            and (model != "pacejka" or al is not None):
+        raise NotImplementedError(
+            "fan: per-lane roads are ported for K1 only; no path of the "
+            "port gives K2 or K3 one road per lane")
+    rs = road_stride(cltab, E)
+    _check("cltab", cltab, cltab.shape, dev)
     _check("pvec", pvec, (len(KERNEL_PARAM_FIELDS),), dev)
-    if cltab.shape[0] < 1:
+    n_cl = cltab.shape[-2]
+    if n_cl < 1:
         raise ValueError("fan: cltab needs at least one row")
     m = 0
     if al is not None:
@@ -571,7 +621,7 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
         return psi, grad
     from mpc_tpu_torch.kernels.build import load_fused_psi
     lib = load_fused_psi()
-    common = (E, n_horiz, cltab.shape[0], substeps, float(h), float(v_ref),
+    common = (E, n_horiz, n_cl, substeps, float(h), float(v_ref),
               *(float(w) for w in weights))
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -580,35 +630,45 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
                 u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
                 pvec.data_ptr(), *(t.data_ptr() for t in al),
                 psi.data_ptr(), grad.data_ptr(), *common, stream)
+        elif model == "pacejka":
+            rc = lib.mpc_fused_psi_fan(
+                u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
+                pvec.data_ptr(), psi.data_ptr(), grad.data_ptr(), *common,
+                rs, stream)
         else:
-            entry = lib.mpc_fused_psi_fan if model == "pacejka" \
-                else lib.mpc_fused_psi_fan_kin
-            rc = entry(u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
-                       pvec.data_ptr(), psi.data_ptr(), grad.data_ptr(),
-                       *common, stream)
+            rc = lib.mpc_fused_psi_fan_kin(
+                u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
+                pvec.data_ptr(), psi.data_ptr(), grad.data_ptr(), *common,
+                stream)
         if rc != 0:
             # a shape the kernel's shared memory cannot hold raises
             # ValueError here; anything else is a launch failure
-            phased_plan(E, n_horiz, cltab.shape[0], model, al is not None)
+            phased_plan(E, n_horiz, n_cl, model, al is not None,
+                        cltab.shape[0] if rs else 0)
     if rc != 0:
         raise RuntimeError(f"fan: CUDA kernel launch failed with "
                            f"cudaError {rc}")
     wrapper.launches += 1
+    if rs:
+        wrapper.road_launches += 1
     return psi, grad
 
 
 def phased_plan(E: int, n_horiz: int, n_cl: int, model: str,
-                al: bool) -> tuple:
+                al: bool, roads: int = 0) -> tuple:
     """``(lanes per block, shared-memory bytes)`` of the phased kernel for
     ``model`` (K1 ``"pacejka"``, K2 ``"simplified"``, K3 ``"pacejka"`` with
-    ``al``) for E lanes on the current CUDA device, as its launcher picks
-    them; ValueError if the shape does not fit the device's shared memory
-    even at one lane per block."""
+    ``al``) for E lanes on one shared road (``roads`` 0) or on ``roads``
+    roads of E / roads lanes each (a block stages each road its lanes read)
+    on the current CUDA device, as its launcher picks them; ValueError if
+    the shape does not fit the device's shared memory even at one lane per
+    block."""
     from mpc_tpu_torch.kernels.build import load_fused_psi
     lanes, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rs = _lanes_per_road(E, roads) if roads else 0
     rc = load_fused_psi().mpc_fused_psi_fan_plan(
-        _MODELS[model][1], int(al), E, n_horiz, n_cl, ctypes.byref(lanes),
-        ctypes.byref(smem))
+        _MODELS[model][1], int(al), E, n_horiz, n_cl, rs,
+        ctypes.byref(lanes), ctypes.byref(smem))
     if rc != 0:
         raise ValueError(f"fan: N={n_horiz} with a {n_cl}-row centerline "
                          f"table does not fit the kernel's shared memory "
@@ -620,11 +680,14 @@ def fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor, cltab: torch.Tensor,
                        pvec: torch.Tensor, n_horiz: int, substeps: int,
                        h: float, v_ref: float,
                        weights: Sequence[float] = DEFAULT_VEHICLE_WEIGHTS):
-    """K1, the Pacejka fan: ``(psi (E,), grad (E, 2N))`` for ``y0`` (E, 6).
+    """K1, the Pacejka fan: ``(psi (E,), grad (E, 2N))`` for ``y0`` (E, 6),
+    on one shared road (``cltab`` (S-1, 6)) or on one road per scenario
+    (``cltab`` (R, S-1, 6), each road read by E / R adjacent lanes).
 
     On a CPU tensor this is :func:`fan_value_and_grad_reference`. On a CUDA
     tensor it launches the hand-written kernel (``csrc/fused_psi.cu``) or
-    raises: there is no fallback.
+    raises: there is no fallback. ``launches`` counts the launches of both
+    forms, ``road_launches`` those on a (R, S-1, 6) table.
     """
     return _fan(fan_value_and_grad, "pacejka", u, y0, cltab, pvec, n_horiz,
                 substeps, h, v_ref, weights)
@@ -636,7 +699,7 @@ def kin_fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor,
                            v_ref: float,
                            weights: Sequence[float] = DEFAULT_VEHICLE_WEIGHTS):
     """K2, the kinematic-bicycle fan: as :func:`fan_value_and_grad` with
-    ``y0`` (E, 4) ``[x, y, phi, v]``."""
+    ``y0`` (E, 4) ``[x, y, phi, v]``, on a shared road only."""
     return _fan(kin_fan_value_and_grad, "simplified", u, y0, cltab, pvec,
                 n_horiz, substeps, h, v_ref, weights)
 
@@ -651,7 +714,7 @@ def al_fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor,
     """K3, the Pacejka fan plus the augmented-Lagrangian penalty of the
     state constraints ``x_i^2 - offsets_i in [d_lo, d_up]``: ``lam``,
     ``sigma`` (E, 6N) per lane, ``offsets`` (6,), ``d_lo``, ``d_up`` (6N,),
-    stage-major."""
+    stage-major. A shared road only."""
     return _fan(al_fan_value_and_grad, "pacejka", u, y0, cltab, pvec,
                 n_horiz, substeps, h, v_ref, weights,
                 al=(lam, sigma, offsets, d_lo, d_up))
@@ -659,6 +722,7 @@ def al_fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor,
 
 #: kernel launches since each count was last reset
 fan_value_and_grad.launches = 0
+fan_value_and_grad.road_launches = 0
 kin_fan_value_and_grad.launches = 0
 al_fan_value_and_grad.launches = 0
 
@@ -668,7 +732,8 @@ al_fan_value_and_grad.launches = 0
 # ---------------------------------------------------------------------------
 
 def fan_params(centerline: torch.Tensor, p: VehicleParams):
-    """``(cltab, pvec)`` for a road and a parameter set, on the road's device."""
+    """``(cltab, pvec)`` for a road (S, 2) or a stack of roads (R, S, 2) and
+    a parameter set, on the road's device."""
     return make_cltab(centerline), p.to_kernel_vec(device=centerline.device)
 
 
@@ -678,10 +743,13 @@ def make_vehicle_cost_multi(n_horiz: int, ts: float = 0.05,
                             model: str = "pacejka") -> Callable:
     """Build ``cost_multi(cands (B, K, n), y0 (B, sd), cltab, pvec)
     -> (psi (B, K), grad (B, K, n))``: every (scenario x candidate) pair is
-    one evaluation lane of the model's fan (E = B*K): K1 for
-    ``model="pacejka"``, K2 for ``"simplified"``.
+    one evaluation lane of the model's fan (E = B*K, a scenario's K
+    candidates adjacent): K1 for ``model="pacejka"``, K2 for
+    ``"simplified"``.
 
     ``cltab, pvec = fan_params(centerline, p)``; compute them once per solve.
+    A (B, S-1, 6) ``cltab`` gives each scenario's K candidates its road
+    (K1 only).
     """
     if model not in _MODELS:
         raise ValueError(f"unknown model {model!r}")

@@ -1,8 +1,9 @@
 """Road geometry: centerlines, nearest-point lookup, OCP tracking errors
 (port of mpc_tpu/ops/road.py).
 
-Positions are lane-batched ``(B, 2)``; a centerline ``(S, 2)`` is shared by
-every lane. Semantics kept from the reference:
+Positions are lane-batched ``(B, 2)``; a centerline is either ``(S, 2)``,
+shared by every lane, or ``(B, S, 2)``, one road per lane (the JAX package
+``vmap``-s its callers over such roads). Semantics kept from the reference:
 
 - the OCP nearest-point search scans candidates ``0 .. S-2`` (the last point
   is never selected), clamps the previous point at index 0, and takes the
@@ -56,14 +57,22 @@ class NearestPoint(NamedTuple):
 def find_nearest_point_ocp(pos: torch.Tensor,
                            centerline: torch.Tensor) -> NearestPoint:
     """Nearest centerline point with OCP semantics
-    (mpc_tpu/ops/road.py:76-85): candidates ``0..S-2``, previous clamped at 0."""
-    size = centerline.shape[0]
-    cand = centerline[: size - 1]                               # (S-1, 2)
-    d2 = ((cand[None, :, :] - pos[:, None, :]) ** 2).sum(dim=2)  # (B, S-1)
+    (mpc_tpu/ops/road.py:76-85): candidates ``0..S-2``, previous clamped at 0.
+    A (B, S, 2) centerline gives lane b the points of its own road b."""
+    if centerline.dim() == 3 and centerline.shape[0] != pos.shape[0]:
+        raise ValueError(f"find_nearest_point_ocp: {centerline.shape[0]} "
+                         f"roads for {pos.shape[0]} lanes")
+    size = centerline.shape[-2]
+    cand = centerline[..., : size - 1, :]              # ([B,] S-1, 2)
+    d2 = ((cand - pos[:, None, :]) ** 2).sum(dim=2)    # (B, S-1)
     idx = torch.argmin(d2, dim=1)
     prev_idx = torch.clamp(idx - 1, min=0)
-    return NearestPoint(idx, centerline[idx], centerline[prev_idx],
-                        centerline[idx + 1])
+    if centerline.dim() == 2:
+        return NearestPoint(idx, centerline[idx], centerline[prev_idx],
+                            centerline[idx + 1])
+    lanes = torch.arange(pos.shape[0], device=pos.device)
+    return NearestPoint(idx, centerline[lanes, idx],
+                        centerline[lanes, prev_idx], centerline[lanes, idx + 1])
 
 
 class RoadErrors(NamedTuple):

@@ -2,7 +2,7 @@
 fan kernel's share of it, device kernels per step, and the device's idle
 share. Same controllers, roads and initial states as ``mpc_tpu_torch.bench``.
 
-    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc]
+    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc|config5|config4]
 
 For the cell's batch (and its batch-1 loop's, where it has one): the cell's
 warm-up steps, then 3 steps (1 for ss_n40, whose step runs some 1,500
@@ -12,6 +12,11 @@ kernels and whose step runs tens of them, the profiled unit is 2 AL-iLQR
 inner iterations from the warm carry (``solve.prepare_inner``), not a step.
 For etc it is the cell's 12 timed steps: its lanes re-solve together, on
 the step where their plans expire (one step in 12), and replay between.
+For config5 it is the first 3 steps of the two-tier suite after its
+untimed 2-step pass, both tiers; the fan kernel's time is also split by
+tier (each tier's launches, counted per controller step, in launch
+order), which gives the straggler lanes' share of K1 time. For config4 it is the first 3
+steps of the two-car loop after a warm loop.
 The first time they are timed on the host clock, with a synchronise after
 each and no profiler. The second time they run under ``torch.profiler``.
 They are deterministic, so both runs do the same work; the script checks
@@ -26,6 +31,7 @@ Prints one JSON line per batch, then the card's name and power limit.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -34,11 +40,14 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mpc_tpu_torch.bench import CELLS, ClosedLoop, gpu_info
+from mpc_tpu_torch.bench import (CELLS, ClosedLoop, StepRecord, SuiteCell,
+                                 TwoCarCell, gpu_info, suite_setup,
+                                 two_car_setup)
 from mpc_tpu_torch.config import IlqrConfig
+from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
 
 N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1, "ilqr_n40": 2,
-              "etc": 12}
+              "etc": 12, "config5": 3, "config4": 3}
 FAN_KERNEL = "fused_psi_fan"   # K1-K3: instances of fused_psi_fan_phased
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,6 +100,154 @@ def _union_us(intervals):
     return total
 
 
+def _profile(work, name: str, batch: int):
+    """``work() -> (walls, iters)``, run once on the host clock and once
+    under the profiler: ``(walls, iters, walls under the profiler, the
+    trace's device intervals, the trace's path)``; RuntimeError if the two
+    runs did other work."""
+    walls, iters = work()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_walls, prof_iters = work()
+    if prof_iters != iters:
+        raise RuntimeError(f"the profiled steps did other work than the "
+                           f"timed ones: iterations {prof_iters} vs {iters}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"trace_{name}_batch{batch}.json")
+    prof.export_chrome_trace(path)
+    return walls, iters, prof_walls, _device_intervals(path), path
+
+
+def _summary(name, batch, unit, walls, iters, prof_walls, dev, path,
+             has_fan=True) -> dict:
+    kernels = [iv for iv in dev if iv[2] == "kernel"]
+    fan = [iv for iv in kernels if FAN_KERNEL in iv[3]]
+    if not kernels or has_fan != bool(fan):
+        raise RuntimeError(f"the profiler's trace holds {len(kernels)} "
+                           f"device kernels, {len(fan)} of them the fan "
+                           f"kernel, on a path {'with' if has_fan else 'without'}"
+                           f" one")
+    busy_ms = _union_us(dev) / 1e3
+    wall_ms = sum(walls) * 1e3
+    r = {
+        "cell": name, "batch": batch, "unit": unit,
+        "units": len(iters), "slowest_lane_iters": iters,
+        "wall_ms": wall_ms, "wall_ms_under_profiler": sum(prof_walls) * 1e3,
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_kernels": len(kernels),
+        "device_kernels_per_iteration": len(kernels) / sum(iters),
+        "trace": os.path.relpath(path, ROOT),
+    }
+    if has_fan:
+        fan_ms = sum(b - a for a, b, _, _ in fan) / 1e3
+        r.update({
+            "fan_kernel_ms": fan_ms, "fan_share_of_busy": fan_ms / busy_ms,
+            "fan_kernels_in_trace": len(fan),
+            "fan_us_per_launch": fan_ms * 1e3 / len(fan)})
+    return r, sorted(fan)
+
+
+@torch.no_grad()
+def profile_suite(cell: SuiteCell) -> dict:
+    """Config 5: ``N_PROFILED`` steps of the two-tier suite from the
+    scenarios' start, after the cell's untimed pass. The profiled unit is a
+    step; its iterations are the slowest lane's over both tiers."""
+    from mpc_tpu_torch.ops import fused_psi as fp
+    record = StepRecord()
+    sc, params, f_d, full, cheap = suite_setup(cell, record)
+    n = N_PROFILED[cell.name]
+
+    def suite(n_sim):
+        return run_scenario_suite_two_tier(full, cheap, f_d, sc, params,
+                                           n_sim, cell.straggler_pad)
+
+    suite(cell.n_warm_steps)
+    torch.cuda.synchronize()
+    stats = []
+
+    def work():
+        record.clear()
+        launches0 = fp.fan_value_and_grad.launches
+        t0 = time.perf_counter()
+        state, _ = suite(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = state["stats"]
+        stats.append((st, record.launches_by_tier(),
+                      fp.fan_value_and_grad.launches - launches0))
+        # per step, the slowest lane of each tier (a tier that ran)
+        it = [int(x) for x in torch.stack(record.iters).cpu()]
+        per_step, k = [], 0
+        for j in range(n):
+            m = 2 if st["n_stragglers"][j] else 1
+            per_step.append(sum(it[k:k + m]))
+            k += m
+        return [wall / n] * n, per_step
+
+    walls, iters, prof_walls, dev, path = _profile(work, cell.name,
+                                                   cell.batch)
+    r, fan = _summary(cell.name, cell.batch, "step", walls, iters,
+                      prof_walls, dev, path)
+    st, tiers, launches = stats[-1]
+    # the fan kernels run in launch order on one stream: each step's cheap
+    # tier's launches, then its straggler tier's
+    tier_ms = {"cheap": 0.0, "straggler": 0.0}
+    k = 0
+    for nc, ns in zip(tiers["cheap"], tiers["straggler"]):
+        for tier, cnt in (("cheap", nc), ("straggler", ns)):
+            tier_ms[tier] += sum(b - a for a, b, _, _ in fan[k:k + cnt]) / 1e3
+            k += cnt
+    if k != len(fan) or launches != len(fan):
+        raise RuntimeError(f"{len(fan)} fan kernels in the trace, "
+                           f"{launches} launched ({k} counted by tier)")
+    r.update({
+        "wall_ms_note": "the suite's wall over its steps",
+        "fan_launches": launches,
+        "n_stragglers": st["n_stragglers"],
+        "fan_launches_cheap": tiers["cheap"],
+        "fan_launches_straggler": tiers["straggler"],
+        "fan_ms_cheap": tier_ms["cheap"],
+        "fan_ms_straggler": tier_ms["straggler"],
+        "straggler_share_of_fan": tier_ms["straggler"] / r["fan_kernel_ms"],
+        # the tiers' host-clock seconds of the unprofiled run
+        "cheap_s": stats[0][0]["cheap_s"],
+        "straggler_s": stats[0][0]["straggler_s"]})
+    return r
+
+
+@torch.no_grad()
+def profile_two_car(cell: TwoCarCell) -> dict:
+    """Config 4: ``N_PROFILED`` steps of the two-car loop over its pairs,
+    after one warm loop. The profiled unit is a step."""
+    from mpc_tpu_torch.ops import fused_psi as fp
+    record = StepRecord()
+    n = N_PROFILED[cell.name]
+    game, y0a, y0b = two_car_setup(
+        dataclasses.replace(cell, n_sim=n), record)
+    game(y0a, y0b, 1, 1)
+    torch.cuda.synchronize()
+    launches = []
+
+    def work():
+        record.clear()
+        launches0 = fp.fan_value_and_grad.launches
+        t0 = time.perf_counter()
+        game(y0a, y0b, 1, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(fp.fan_value_and_grad.launches - launches0)
+        return [wall / n] * n, [int(x)
+                                for x in torch.stack(record.iters).cpu()]
+
+    walls, iters, prof_walls, dev, path = _profile(work, cell.name,
+                                                   cell.pairs)
+    r, _ = _summary(cell.name, cell.pairs, "step (2 x pairs lanes)", walls,
+                    iters, prof_walls, dev, path)
+    r["wall_ms_note"] = "the loop's wall over its steps"
+    r["fan_launches"] = launches[-1]
+    return r
+
+
 @torch.no_grad()
 def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     from mpc_tpu_torch.ops import fused_psi as fp
@@ -118,46 +275,16 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
         def work():
             return _run_inner_iterations(iterate, st)
 
-    walls, iters = work()
     launches0 = sum(w.launches for w in wrappers)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_walls, prof_iters = work()
-    launches = sum(w.launches for w in wrappers) - launches0
-    if prof_iters != iters:
-        raise RuntimeError(f"the profiled steps did other work than the "
-                           f"timed ones: iterations {prof_iters} vs {iters}")
-
-    os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR,
-                        f"trace_{loop.cell.name}_batch{batch}.json")
-    prof.export_chrome_trace(path)
-    dev = _device_intervals(path)
-    kernels = [iv for iv in dev if iv[2] == "kernel"]
-    fan = [iv for iv in kernels if FAN_KERNEL in iv[3]]
-    if not kernels or has_fan != bool(fan):
-        raise RuntimeError(f"the profiler's trace holds {len(kernels)} "
-                           f"device kernels, {len(fan)} of them the fan "
-                           f"kernel, on a path {'with' if has_fan else 'without'}"
-                           f" one")
-    busy_ms = _union_us(dev) / 1e3
-    fan_ms = sum(b - a for a, b, _, _ in fan) / 1e3
-    wall_ms = sum(walls) * 1e3
-    r = {
-        "cell": loop.cell.name, "batch": batch,
-        "unit": "step" if has_fan else "inner iteration",
-        "units": len(iters), "slowest_lane_iters": iters,
-        "wall_ms": wall_ms, "wall_ms_under_profiler": sum(prof_walls) * 1e3,
-        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-        "device_kernels": len(kernels),
-        "device_kernels_per_iteration": len(kernels) / sum(iters),
-        "trace": os.path.relpath(path, ROOT),
-    }
+    walls, iters, prof_walls, dev, path = _profile(work, loop.cell.name,
+                                                   batch)
+    # the profiled run's launches: half of the two runs'
+    launches = (sum(w.launches for w in wrappers) - launches0) // 2
+    r, _ = _summary(loop.cell.name, batch,
+                    "step" if has_fan else "inner iteration", walls, iters,
+                    prof_walls, dev, path, has_fan)
     if has_fan:
-        r.update({
-            "fan_kernel_ms": fan_ms, "fan_share_of_busy": fan_ms / busy_ms,
-            "fan_launches": launches, "fan_kernels_in_trace": len(fan),
-            "fan_us_per_launch": fan_ms * 1e3 / len(fan)})
+        r["fan_launches"] = launches
     return r
 
 
@@ -168,7 +295,16 @@ def main(argv=None):
         raise SystemExit(f"usage: python -m mpc_tpu_torch.profile_step "
                          f"[{'|'.join(CELLS)}]")
     info = gpu_info()
-    loop = ClosedLoop(CELLS[name])
+    cell = CELLS[name]
+    if isinstance(cell, (SuiteCell, TwoCarCell)):
+        r = profile_suite(cell) if isinstance(cell, SuiteCell) \
+            else profile_two_car(cell)
+        r["device"] = info["name"]
+        r["power_limit"] = info["power_limit"]
+        print(json.dumps({"profile": r}), flush=True)
+        print(info["nvidia_smi"])
+        return
+    loop = ClosedLoop(cell)
     batches = (loop.cell.batch,) if loop.cell.batch1_steps is None \
         else (loop.cell.batch, 1)
     for batch in batches:

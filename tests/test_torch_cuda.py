@@ -1,6 +1,7 @@
 """On-card tests of the port's CUDA kernels (mpc_tpu_torch/csrc/fused_psi.cu:
-K1, the Pacejka fan, K2, the kinematic fan, and K3, the augmented-Lagrangian
-fan, all three instances of the phased kernel), and of the AL-iLQR path on
+K1, the Pacejka fan, on one road and on per-lane roads, K2, the kinematic
+fan, and K3, the augmented-Lagrangian fan, all instances of the phased
+kernel), and of the AL-iLQR path on
 the card (the LQT solves, an iteration that never waits for the card, the
 controller's default device).
 
@@ -24,6 +25,7 @@ from mpc_tpu_torch.ops import fused_psi as fp
 from mpc_tpu_torch.ops.bezier import (bezier_centerline,
                                       lane_change_control_points)
 from mpc_tpu_torch.ops.road import circle_centerline, straight_centerline
+from mpc_tpu_torch.sim.scenarios import random_scenarios
 
 PSI_TOL = dict(rtol=2e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -413,6 +415,125 @@ def test_phased_kernel_refuses_an_oversize_shape(cuda, kernel):
     with pytest.raises(ValueError, match="shared memory"):
         wrapper(u, y0, long_tab, pvec, n_horiz, 4, 0.0125, 1.0)
     assert wrapper.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K1 on per-lane roads ("K1 roads"): lane e on road e // K
+# ---------------------------------------------------------------------------
+
+def _scenario_fan(seed, E, K, device):
+    """In-box fan inputs of E lanes on E / K roads of ``random_scenarios``
+    (straight, arc and lane-change roads), each lane starting from its
+    scenario's initial state."""
+    sc = random_scenarios(E // K, 100,
+                          generator=torch.Generator().manual_seed(seed),
+                          device=device)
+    u, _ = _inputs(seed, E, 12, device)
+    y0 = sc.y0.repeat_interleave(K, dim=0).contiguous()
+    cltab, pvec = fp.fan_params(sc.centerline, VehicleParams())
+    return u, y0, cltab, pvec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K", [(1, 1), (37, 1), (35, 5), (10240, 5),
+                                 (4230, 5), (2560, 5), (2, 2), (38, 2),
+                                 (4096, 2), (1024, 2)])
+def test_roads_kernel_matches_plain_version(cuda, E, K):
+    u, y0, cltab, pvec = _scenario_fan(E + K, E, K, cuda)
+    args = (12, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
+    lanes, smem = fp.phased_plan(E, 12, cltab.shape[1], "pacejka", False,
+                                 E // K)
+    print(f"K1 roads E={E} K={K}: {lanes} lanes per block, {smem} B")
+    before = (fp.fan_value_and_grad.launches,
+              fp.fan_value_and_grad.road_launches)
+    psi, grad = fp.fan_value_and_grad(u, y0, cltab, pvec, *args)
+    torch.cuda.synchronize()
+    assert (fp.fan_value_and_grad.launches,
+            fp.fan_value_and_grad.road_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    r = compare_fan(psi, grad, u, y0, cltab, pvec, *args, PSI_TOL, GRAD_TOL)
+    print(f"K1 roads E={E} K={K}: {r}")
+    assert r["failed"] == 0 and r["excused"] <= 0.01 * E, r
+    assert r["max_abs_err_psi"] == 0.0, r
+
+
+@pytest.mark.cuda
+def test_roads_kernel_stages_each_blocks_roads(cuda):
+    # at the paths' shapes the roads of a block (at most (L - 1) / K + 2 of
+    # 2,376 B each) come on top of the shared-road kernel's memory
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    road_bytes = 99 * 6 * 4
+    for E, K in ((10240, 5), (4096, 2), (2560, 5), (1024, 2), (320, 5)):
+        lanes, smem = fp.phased_plan(E, 12, 99, "pacejka", False, E // K)
+        lanes0, smem0 = fp.phased_plan(E, 12, 99, "pacejka", False)
+        assert lanes == lanes0 and -(-E // lanes) >= min(n_sm, E), (E, K)
+        assert smem - smem0 == ((lanes - 1) // K + 1) * road_bytes, \
+            (E, K, smem, smem0)
+
+
+@pytest.mark.cuda
+def test_roads_kernel_on_copies_of_one_road_is_the_shared_launch(cuda):
+    # the shared-road launch (road stride 0) is unchanged: per-lane copies
+    # of its road give the same bits
+    E, K = 5120, 5
+    u, y0 = _inputs(11, E, 12, cuda)
+    road = circle_centerline(100, device=cuda)
+    args = (12, 4, 0.0125, 1.0)
+    shared = fp.fan_value_and_grad(u, y0, *fp.fan_params(road,
+                                                         VehicleParams()),
+                                   *args)
+    cltab, pvec = fp.fan_params(road.expand(E // K, -1, -1).contiguous(),
+                                VehicleParams())
+    roads = fp.fan_value_and_grad(u, y0, cltab, pvec, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(shared[0], roads[0])
+    assert torch.equal(shared[1], roads[1])
+
+
+@pytest.mark.cuda
+def test_k2_and_k3_raise_on_per_lane_roads_on_card(cuda):
+    E, n = 10, 12
+    cltab, pvec = fp.fan_params(straight_centerline(100, device=cuda)
+                                .expand(2, -1, -1).contiguous(),
+                                VehicleParams())
+    u, y4 = _variant_inputs(0, E, n, 4, cuda)
+    _, y6 = _variant_inputs(0, E, n, 6, cuda)
+    al = _al_operands(0, E, n, cuda, (0, 1))
+    before = (fp.kin_fan_value_and_grad.launches,
+              fp.al_fan_value_and_grad.launches)
+    with pytest.raises(NotImplementedError):
+        fp.kin_fan_value_and_grad(u, y4, cltab, pvec, n, 4, 0.0125, 1.0)
+    with pytest.raises(NotImplementedError):
+        fp.al_fan_value_and_grad(u, y6, cltab, pvec, *al, n, 4, 0.0125, 1.0)
+    assert (fp.kin_fan_value_and_grad.launches,
+            fp.al_fan_value_and_grad.launches) == before
+
+
+@pytest.mark.cuda
+def test_suite_step_on_card_matches_cpu(cuda):
+    # One cold MPC step with one road per lane through the kernel on the
+    # card against the same step through the plain version on the CPU.
+    B, n_horiz = 8, 12
+    sc = random_scenarios(B, 100, generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", cuda):
+        ctrl = build_vehicle_controller(
+            n_horiz=n_horiz, alm_cfg=AlmConfig(eps=1e-4),
+            panoc_cfg=PanocConfig(lbfgs_memory=n_horiz, max_iter=150),
+            device=dev)
+        param = {"y0": sc.y0.to(dev), "p": VehicleParams(),
+                 "centerline": sc.centerline.to(dev)}
+        before = fp.fan_value_and_grad.road_launches
+        res = ctrl.step(ctrl.init_carry(B, dev), param)
+        out[str(dev)] = (res, fp.fan_value_and_grad.road_launches - before)
+    (r_cpu, n_cpu), (r_gpu, n_gpu) = out["cpu"], out["cuda"]
+    assert n_cpu == 0 and n_gpu > int(r_gpu.result.inner_iterations.max())
+    np.testing.assert_array_equal(r_gpu.result.converged.cpu().numpy(),
+                                  r_cpu.result.converged.numpy())
+    np.testing.assert_allclose(r_gpu.result.psi.cpu().numpy(),
+                               r_cpu.result.psi.numpy(), rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(r_gpu.u0.cpu().numpy(), r_cpu.u0.numpy(),
+                               rtol=0, atol=5e-3)
 
 
 # ---------------------------------------------------------------------------
