@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --timing
 
-It drives the port's seven paths. Four go each through its own fan kernel
+It drives the port's ten paths. Four go each through its own fan kernel
 of csrc/fused_psi.cu, all instances of one phased kernel: the headline
 (Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2), ss_n40
 (bounded state constraints through the ALM general path, N=40; K3) and
@@ -11,8 +11,10 @@ config 5 (the randomized scenario suite, one road per lane; K1 at a road
 stride, "K1 roads"). ilqr_n40 (config 2: the same constrained OCP through
 AL-iLQR) runs no kernel of its own, etc (config 3: event-triggered MPC over
 the headline's controller) runs K1, and config 4 (the two-car game, each
-car on its lane's road) runs K1 roads. Phases, each of which fails the run
-with a nonzero exit:
+car on its lane's road) runs K1 roads. Three run the plain OCP, whose fan
+is autograd over B*K lanes and launches no kernel: ms_n40_m8 (multiple
+shooting), config5_obs (config 5 with the obstacle field) and chain (the
+hanging chain). Phases, each of which fails the run with a nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
@@ -85,7 +87,24 @@ with a nonzero exit:
    fraction >= 0.99 (headline, config 1, etc, config 5) or >= 0.98 (ss_n40,
    ilqr_n40, whose converged lanes must also meet the constraints to delta
    = 1e-3), etc's mean trigger fraction in (0, 1], and some pair of config
-   4 must change lane.
+   4 must change lane;
+7. the unfused paths, through ``mpc_tpu_torch.bench`` as in phase 6, each
+   of which must launch no fan kernel: ms_n40_m8 at batch 256 (converged
+   >= 0.85, its converged lanes within delta = 1e-3 of the constraints,
+   the defects included), config5_obs at batch 2048 (converged >= 0.99 after
+   both tiers, no NaN scenario; the least distance from a car to an
+   obstacle beside the same steps without the term) and chain at batch 1
+   (the least floor margin over steps and balls >= -1e-4, the ALM delta),
+   each at a cut depth (``SMOKE_DEPTH``; a lane of ms_n40_m8 may end
+   non-finite, see ``MAY_DIVERGE``); then the plain fan replayed from its
+   CUDA graph against the eager call on ms_n40_m8's fan, equal bit for
+   bit, and their times; then the windowed search
+   (``window=32``) on the headline's lanes, 2 steps at batch 1024, its
+   first inputs within 2e-3 of the dense fused controller's and its
+   converged flags equal; then AL-iLQR with the obstacle field on the
+   scenario of tests/test_obstacle_avoidance.py (N=12, 4 steps at batch
+   1), every step converged, its first step within 2e-3 of the same
+   controller on the CPU.
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -118,10 +137,28 @@ ROADS_MAX_CALLS = 12        # captured K1 roads calls checked per shape
 # ilqr_n40's 5-7 s (4 s at batch 1); with configs 5 and 4 the script would
 # take about 780 s of its 1200 s, so those two are cut further, config 4
 # runs one timed loop, and config 5's batch-1 loop runs 3 + 10 steps
+# ms_n40_m8, config5_obs and chain, whose plain fans launch some 10^4 kernels
+# per PANOC iteration (replayed from CUDA graphs), take 17-34 s a step on
+# the H100 and are cut to a few steps
 SMOKE_DEPTH = {"ss_n40": dict(n_warmup=2, n_steps=2),
                "ilqr_n40": dict(n_warmup=2, n_steps=4, batch1_steps=(2, 6)),
                "config5": dict(batch1_steps=(3, 10)),
-               "config4": dict(n_loops=1)}
+               "config4": dict(n_loops=1),
+               "ms_n40_m8": dict(n_warmup=1, n_steps=1),
+               "config5_obs": dict(n_warm_steps=0, n_sim=2),
+               "chain": dict(n_steps=3)}
+# A lane of these paths may run to a non-finite state. Once the augmented
+# Lagrangian is stiff enough that PANOC's step size falls to gamma_min, the
+# reference accepts any step (mpc_tpu/solver/panoc.py:294), and a segment
+# start state, which no box holds, can then run to inf: on the H100 one
+# lane of ms_n40_m8's 256 does so in its first step and 10 by its ninth,
+# and the JAX package's own controller does so on the CPU (lane 12 of the
+# cell's first 16 in its second step; tests/test_torch_ms_controller.py run
+# as a script). Such a lane counts as unconverged, and the path's converged
+# fraction must meet its limit.
+MAY_DIVERGE = ("ms_n40_m8",)
+WINDOW_U0_BAND = 2e-3       # first inputs, windowed against dense
+MIN_FLOOR_MARGIN = -1e-4    # the chain's ALM delta
 
 
 def fail(msg):
@@ -488,11 +525,7 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
     from mpc_tpu_torch.bench import run
     if cell.name in SMOKE_DEPTH:
         cell = dataclasses.replace(cell, **SMOKE_DEPTH[cell.name])
-    wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
-                fp.al_fan_value_and_grad)
-    for w in wrappers:
-        w.launches = 0
-    fp.fan_value_and_grad.road_launches = 0
+    wrappers = _reset_counts(fp)
     r = run(cell)
     launches = {w.__name__: w.launches for w in wrappers}
     launches["road_launches"] = fp.fan_value_and_grad.road_launches
@@ -533,11 +566,27 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
     if "mean_trigger_fraction" in r:
         parts.append(f"mean trigger fraction "
                      f"{r['mean_trigger_fraction']:.4f}")
+    if r.get("nonfinite_lanes"):
+        parts.append(f"{r['nonfinite_lanes']} lanes non-finite")
+    if "min_obstacle_distance" in r:
+        parts.append(f"least car-obstacle distance "
+                     f"{r['min_obstacle_distance']:.4f} (without the term "
+                     f"{r['min_obstacle_distance_without_term']:.4f}), NaN "
+                     f"scenarios {r['nan_scenarios']}")
+    if "min_floor_margin" in r:
+        parts.append(f"failures {r['failures']}, least floor margin "
+                     f"{r['min_floor_margin']:.3e}, free end's final "
+                     f"distance to x_end {r['free_end_final_distance']:.4f}")
     print(f"path {cell.name}: " + ", ".join(parts))
     if wrapper is None:
-        if any(launches.values()):
+        # config5_obs's comparison run without the term is config5's path
+        # and launches K1 on per-lane roads; the cell's own run may not
+        own = dict(launches)
+        for key in ("fan_value_and_grad", "road_launches"):
+            own[key] -= r.get("fan_launches_without_term", 0)
+        if any(own.values()):
             fail(f"{cell.name}: a path without a fan kernel launched one: "
-                 f"{launches}")
+                 f"{own}")
     else:
         own = launches[wrapper.__name__]
         if own < max(1, r["inner_iterations_run"]):
@@ -546,13 +595,14 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
         if roads and not launches["road_launches"]:
             fail(f"{cell.name}: the path never launched K1 on per-lane "
                  f"roads")
-    if not r["states_finite"]:
+    if not r["states_finite"] and cell.name not in MAY_DIVERGE:
         fail(f"{cell.name}: non-finite plant state in the closed loop")
     if min_conv is not None \
             and not r["mean_converged_fraction"] >= min_conv:
         fail(f"{cell.name}: mean converged fraction "
              f"{r['mean_converged_fraction']} < {min_conv}")
-    if r.get("max_violation_converged", 0.0) > cell.alm_cfg.delta:
+    if "max_violation_converged" in r \
+            and r["max_violation_converged"] > cell.alm_cfg.delta:
         fail(f"{cell.name}: a converged lane violates the constraints by "
              f"{r['max_violation_converged']} > delta")
     if "mean_trigger_fraction" in r \
@@ -562,7 +612,183 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
     if "pairs_with_lane_change" in r \
             and not r["pairs_with_lane_change"] > 0.0:
         fail(f"{cell.name}: no pair changed lane (a frozen fixed point)")
+    if r.get("nan_scenarios", 0):
+        fail(f"{cell.name}: {r['nan_scenarios']} scenarios ended NaN")
+    if "min_floor_margin" in r \
+            and not r["min_floor_margin"] >= MIN_FLOOR_MARGIN:
+        fail(f"{cell.name}: a ball went through the floor by "
+             f"{r['min_floor_margin']:.3e} < {MIN_FLOOR_MARGIN}")
     return launches
+
+
+def _reset_counts(fp):
+    wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
+                fp.al_fan_value_and_grad)
+    for w in wrappers:
+        w.launches = 0
+    fp.fan_value_and_grad.road_launches = 0
+    return wrappers
+
+
+def _no_fan_launched(tag, fp, wrappers):
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts["road_launches"] = fp.fan_value_and_grad.road_launches
+    if any(counts.values()):
+        fail(f"{tag}: a path without a fan kernel launched one: {counts}")
+
+
+def window_phase(bench, fp, info):
+    """The windowed search (the plain OCP) on the headline's lanes against
+    the dense fused controller (K1): 2 closed-loop steps of each from the
+    same cold start at batch 1024; the windowed path must launch no fan
+    kernel, its first inputs must lie within ``WINDOW_U0_BAND`` of the
+    dense path's and its converged flags equal them."""
+    import torch
+    dense = bench.ClosedLoop(bench.HEADLINE)
+    win = bench.ClosedLoop(dataclasses.replace(
+        bench.HEADLINE, name="headline_window", window=32))
+    runs = {}
+    for tag, loop in (("window", win), ("dense", dense)):
+        wrappers = _reset_counts(fp)
+        ys, carry = loop.start(loop.cell.batch)
+        outs = []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(2):
+                ys, carry, out = loop.step(ys, carry)
+                outs.append(out)
+        torch.cuda.synchronize()
+        runs[tag] = (outs, time.perf_counter() - t0)
+        if tag == "window":
+            _no_fan_launched("headline window=32", fp, wrappers)
+    gaps = []
+    for k, (ow, od) in enumerate(zip(runs["window"][0], runs["dense"][0])):
+        gap = float((ow.u0 - od.u0).abs().max())
+        gaps.append(gap)
+        if not gap <= WINDOW_U0_BAND:
+            fail(f"window=32 step {k}: first inputs {gap:.3e} from the "
+                 f"dense controller's > {WINDOW_U0_BAND}")
+        if not bool((ow.result.converged == od.result.converged).all()):
+            fail(f"window=32 step {k}: converged flags differ from the "
+                 f"dense controller's")
+    print(f"window check: headline lanes, batch 1024, window=32 against "
+          f"dense: first inputs apart {[f'{g:.2e}' for g in gaps]}, flags "
+          f"equal, slowest lane {[int(o.result.inner_iterations.max()) for o in runs['window'][0]]} "
+          f"iterations; 2 steps in {runs['window'][1]:.2f} s (dense "
+          f"{runs['dense'][1]:.2f} s); {info['nvidia_smi']}")
+
+
+def fan_graph_phase(bench, info):
+    """The plain OCP's candidate fan replayed from its CUDA graph
+    (``solver/panoc.py:_FanGraph``) against the same call run eagerly, on
+    ms_n40_m8's fan: 256 lanes x 5 candidates about the cold start, the AL
+    objective at multipliers 0 and penalties 10. The outputs must be equal
+    bit for bit, on the captured inputs and on new ones; prints both times
+    (host clock to a sync, median of 5)."""
+    import torch
+    from mpc_tpu_torch.solver.panoc import candidate_fan
+    from mpc_tpu_torch.solver.problem import project, value_and_grad
+    loop = bench.ClosedLoop(bench.MS_N40_M8)
+    ys, carry = loop.start(loop.cell.batch)
+    prob = loop.ctrl.problem
+    param = {"y0": ys, "p": loop.params, "centerline": loop.centerline}
+    z = loop.ctrl.warm_prep(carry.U, param, torch.ones_like(carry.gamma,
+                                                            dtype=torch.bool))
+    gen = torch.Generator("cuda").manual_seed(0)
+    cands = z[:, None] + 0.01 * torch.randn((z.shape[0], 5, z.shape[1]),
+                                            device="cuda", generator=gen)
+    args = (param, torch.zeros_like(carry.lam),
+            torch.full_like(carry.lam, 10.0))
+
+    def psi_vg(u, a):
+        pa, lam, sigma = a
+
+        def psi(u_, pa):
+            f, g = prob.cost_constraints(u_, pa)
+            zeta = g + lam / sigma
+            r = zeta - project(zeta, prob.D)
+            return f + 0.5 * (sigma * r ** 2).sum(dim=1)
+
+        return value_and_grad(psi, u, pa)
+
+    graphs = {}
+    for c in (cands, cands * 1.001):
+        eager = candidate_fan(psi_vg, c, args)
+        graphed = candidate_fan(psi_vg, c, args, graphs)
+        for e, g in zip(eager, graphed):
+            if not torch.equal(e, g):
+                fail(f"the graphed fan differs from the eager one by "
+                     f"{float((e - g).abs().max()):.3e}")
+
+    def seconds(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[n // 2]
+
+    t_e = seconds(lambda: candidate_fan(psi_vg, cands, args))
+    t_g = seconds(lambda: candidate_fan(psi_vg, cands, args, graphs))
+    print(f"fan graph check: ms_n40_m8's fan (256 x 5 lanes, N=40, M=8), "
+          f"graphed equal to eager bit for bit on {len(graphs)} graph; "
+          f"eager {t_e * 1e3:.1f} ms, graphed {t_g * 1e3:.1f} ms a call "
+          f"(host clock to a sync, median of 5); {info['nvidia_smi']}")
+
+
+def ilqr_obstacle_phase(fp, info):
+    """AL-iLQR with the obstacle field (its full second-order path) on the
+    scenario of tests/test_obstacle_avoidance.py: one obstacle 5 cm off a
+    straight road, the car at 0.5 m/s, N=12, 4 steps at batch 1. Every
+    step must converge with finite states and launch no fan kernel; the
+    first step's input must lie within ``WINDOW_U0_BAND`` of the same
+    controller's on the CPU."""
+    import torch
+    from mpc_tpu_torch.control.mpc import build_vehicle_ilqr_controller
+    from mpc_tpu_torch.models.bicycle import pacejka_dynamics
+    from mpc_tpu_torch.models.integrators import discretize
+    from mpc_tpu_torch.models.params import VehicleParams
+    from mpc_tpu_torch.ops.road import straight_centerline
+    kw = dict(n_horiz=12, obstacle_weight=2.0,
+              obstacle_field_kwargs={"a_f": 1.0, "sigma_x": 0.2})
+    f_d, params = discretize(pacejka_dynamics), VehicleParams()
+    firsts = {}
+    for dev in ("cpu", "cuda"):
+        ctrl = build_vehicle_ilqr_controller(device=dev, **kw)
+        static = {"p": params,
+                  "centerline": straight_centerline(100, device=dev),
+                  "obstacles": torch.tensor([[1.0, 0.05, 0.0, 0.0]],
+                                            device=dev)}
+        ys = torch.tensor([[0.0, 0.0, 0.0, 0.5, 0.0, 0.0]], device=dev)
+        carry = ctrl.init_carry(1)
+        wrappers = _reset_counts(fp)
+        iters = []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for k in range(1 if dev == "cpu" else 4):
+                out = ctrl.step(carry, dict(static, y0=ys))
+                ys, carry = f_d(ys, out.u0, params), out.carry
+                firsts.setdefault(dev, out.u0.cpu())
+                iters.append(int(out.result.inner_iterations))
+                if not bool(out.result.converged.all()):
+                    fail(f"iLQR obstacle check ({dev}): step {k} did not "
+                         f"converge")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _no_fan_launched("iLQR obstacle check", fp, wrappers)
+            if not bool(torch.isfinite(ys).all()):
+                fail("iLQR obstacle check: non-finite state")
+            wall = time.perf_counter() - t0
+    gap = float((firsts["cuda"] - firsts["cpu"]).abs().max())
+    if not gap <= WINDOW_U0_BAND:
+        fail(f"iLQR obstacle check: the card's first input is {gap:.3e} "
+             f"from the CPU's")
+    print(f"iLQR obstacle check: N=12, 4 steps at batch 1 converged, inner "
+          f"iterations {iters}, in {wall:.2f} s; first input on the card "
+          f"{firsts['cuda'].tolist()} ({gap:.2e} from the CPU's); "
+          f"{info['nvidia_smi']}")
 
 
 # ---- the LQT solves (mpc_tpu_torch/solver/lqr.py) --------------------------
@@ -980,6 +1206,15 @@ def main():
     runs["ETC"] = drive(bench.ETC, fp.fan_value_and_grad, fp, 0.99)
     runs["CONFIG4"] = drive(bench.CONFIG4, fp.fan_value_and_grad, fp, None,
                             roads=True)
+    print(f"kernel paths done in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 7. the unfused paths ---------------------------------------------
+    drive(bench.MS_N40_M8, None, fp, 0.85)
+    drive(bench.CONFIG5_OBS, None, fp, 0.99)
+    drive(bench.CHAIN, None, fp, None)
+    fan_graph_phase(bench, info)
+    window_phase(bench, fp, info)
+    ilqr_obstacle_phase(fp, info)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []

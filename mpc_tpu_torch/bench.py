@@ -48,10 +48,29 @@ NVIDIA GPU, one closed loop per cell.
   cars (``default_rng(1)``), the median of 20 timed calls. Its fan is K1 on
   per-lane roads.
 
+- ``ms_n40_m8``: multiple shooting (examples/exp_ms.py:136-142, ``bench()``
+  at :39-80): ss_n40's OCP, road and initial states split into 8 segments
+  of 5 stages glued by defect equalities, ``AlmConfig(eps=1e-3,
+  delta=1e-3, max_iter=8, eps_0=1e-2, sigma_0=1e3, penalty_factor=5.0)``
+  (defects at sigma_0 = 10), ``PanocConfig(lbfgs_memory=40,
+  max_iter=150)``, batch 256, 3 warm-up and 6 timed steps. No kernel: the
+  plain OCP's fan is autograd over B*K lanes.
+- ``config5_obs``: config 5 with the obstacle field of the JAX package's
+  suite test (tests/test_obstacle_avoidance.py:36, :88-92:
+  ``obstacle_weight=1.0``, ``a_f=1.0``, ``sigma_x=0.2``), each lane with its
+  scenario's 2 obstacles; no batch-1 loop. No kernel (the plain OCP). It
+  reports the least distance from any car to any obstacle over the timed
+  rollout beside the same number from the same steps without the term.
+- ``chain``: the hanging chain (examples/hanging_chain.py:32-60, the
+  reference's alpaqa demo): 6 balls in 2-D, disturbed 3 steps at
+  u = [-0.5, 0.5], N=12, the chain controller's ``AlmConfig``,
+  ``PanocConfig(lbfgs_memory=12, max_iter=250)``, batch 1, a closed loop
+  of ``CHAIN_STEPS`` steps (the source runs 180). No kernel.
+
 ``solves/s`` is all the timed solves over all the timed wall time; the root
 ``bench.py`` divides the batch by the p50 step.
 
-    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc|config5|config4]
+    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain]
 
 Prints a detail JSON line (with the card's name and power limit) and, last,
 the result JSON line. Without a CUDA device it exits with an error: a
@@ -72,12 +91,16 @@ import torch
 
 from mpc_tpu_torch.config import AlmConfig, IlqrConfig, PanocConfig
 from mpc_tpu_torch.control.event_triggered import EventTriggeredController
+from mpc_tpu_torch.control.chain_mpc import (build_chain_controller,
+                                             floor_coefficients, g_constr)
 from mpc_tpu_torch.control.mpc import (build_vehicle_controller,
-                                       build_vehicle_ilqr_controller)
+                                       build_vehicle_ilqr_controller,
+                                       build_vehicle_ms_controller)
 from mpc_tpu_torch.decision.game_theory import Cars, Ego, lane_payoffs
 from mpc_tpu_torch.models.bicycle import pacejka_dynamics, simplified_dynamics
+from mpc_tpu_torch.models.chain import ChainSpec, chain_dynamics
 from mpc_tpu_torch.models.integrators import discretize
-from mpc_tpu_torch.models.params import VehicleParams
+from mpc_tpu_torch.models.params import ChainParams, VehicleParams
 from mpc_tpu_torch.ops import fused_psi as fp
 from mpc_tpu_torch.ops.bezier import (bezier_centerline,
                                       lane_change_control_points)
@@ -160,7 +183,8 @@ class Cell:
     the solver family: ``PanocConfig`` (ALM+PANOC) or ``IlqrConfig``
     (AL-iLQR). ``batch1_steps`` is the (warm-up, timed) steps of a batch-1
     loop after the batched one; ``trigger_threshold`` wraps the controller
-    in event-triggered MPC."""
+    in event-triggered MPC; ``n_segments`` makes it the multiple-shooting
+    controller; ``window`` searches the road in a window (the plain OCP)."""
     name: str
     model: str
     n_horiz: int
@@ -174,6 +198,8 @@ class Cell:
     bound_state_constraints: bool = False
     batch1_steps: Optional[tuple] = None
     trigger_threshold: Optional[float] = None
+    n_segments: Optional[int] = None
+    window: Optional[int] = None
 
 
 def _straight(device):
@@ -203,12 +229,20 @@ ETC = Cell(
     "etc", "pacejka", N_HORIZ, AlmConfig(eps=1e-4),
     PanocConfig(lbfgs_memory=N_HORIZ, max_iter=300), _straight, etc_states,
     1024, 4, 12, trigger_threshold=1e-2)
+MS_N40_M8 = Cell(
+    "ms_n40_m8", "pacejka", 40,
+    AlmConfig(eps=1e-3, delta=1e-3, max_iter=8, eps_0=1e-2, sigma_0=1e3,
+              penalty_factor=5.0),
+    PanocConfig(lbfgs_memory=40, max_iter=150), lane_change_road,
+    ss_n40_states, 256, 3, 6, bound_state_constraints=True, n_segments=8)
 
 
 @dataclasses.dataclass(frozen=True)
 class SuiteCell:
     """The randomized scenario suite in two tiers: scenarios of the native
-    generator, one road per lane."""
+    generator, one road per lane; with ``obstacle_weight`` > 0 the cost has
+    the obstacle field (``obstacle_field_kwargs``) and each lane its
+    scenario's obstacles. ``batch1_steps`` None: no batch-1 loop."""
     name: str
     n_horiz: int
     alm_cfg: AlmConfig
@@ -220,7 +254,9 @@ class SuiteCell:
     n_sim: int
     n_warm_steps: int
     straggler_pad: int
-    batch1_steps: tuple
+    batch1_steps: Optional[tuple]
+    obstacle_weight: float = 0.0
+    obstacle_field_kwargs: Optional[dict] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,8 +284,37 @@ CONFIG4 = TwoCarCell(
     "config4", N_HORIZ, AlmConfig(eps=1e-4),
     PanocConfig(lbfgs_memory=N_HORIZ, max_iter=150), pairs=256, n_sim=10,
     n_loops=3, payoff_batch=4096, payoff_cars=4, payoff_calls=20)
+CONFIG5_OBS = dataclasses.replace(
+    CONFIG5, name="config5_obs", batch1_steps=None, obstacle_weight=1.0,
+    obstacle_field_kwargs={"a_f": 1.0, "sigma_x": 0.2})
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainCell:
+    """The hanging chain's closed loop at batch ``batch``, after
+    ``n_dist`` disturbance steps at ``u_dist``; ``alm_cfg`` None is the
+    chain controller's default."""
+    name: str
+    n_balls: int
+    dim: int
+    n_horiz: int
+    alm_cfg: Optional[AlmConfig]
+    solver_cfg: PanocConfig
+    u_dist: tuple
+    n_dist: int
+    batch: int
+    n_steps: int
+
+
+#: the chain cell's closed-loop steps, cut from the source's 180: see
+#: PERF.md section 4
+CHAIN_STEPS = 60
+CHAIN = ChainCell("chain", 6, 2, N_HORIZ, None,
+                  PanocConfig(lbfgs_memory=N_HORIZ, max_iter=250),
+                  (-0.5, 0.5), 3, 1, CHAIN_STEPS)
 CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40, ILQR_N40, ETC,
-                             CONFIG5, CONFIG4)}
+                             CONFIG5, CONFIG4, MS_N40_M8, CONFIG5_OBS,
+                             CHAIN)}
 
 
 class ClosedLoop:
@@ -270,9 +335,12 @@ class ClosedLoop:
         if isinstance(cell.solver_cfg, IlqrConfig):
             self.ctrl = build_vehicle_ilqr_controller(
                 ilqr_cfg=cell.solver_cfg, **kw)
+        elif cell.n_segments is not None:
+            self.ctrl, _ = build_vehicle_ms_controller(
+                n_segments=cell.n_segments, panoc_cfg=cell.solver_cfg, **kw)
         else:
             self.ctrl = build_vehicle_controller(panoc_cfg=cell.solver_cfg,
-                                                 **kw)
+                                                 window=cell.window, **kw)
         if cell.trigger_threshold is not None:
             self.ctrl = EventTriggeredController(
                 base=self.ctrl, f_d=self.f_d,
@@ -327,13 +395,17 @@ class _Recorded:
 
     def __init__(self, ctrl, record: StepRecord, tier: str = ""):
         self.ctrl, self.record, self.device = ctrl, record, ctrl.device
+        self.problem = ctrl.problem
         self.tier = tier
+        self.states = []        # the cheap tier's y0: every lane, each step
 
     def init_carry(self, *args, **kwargs):
         return self.ctrl.init_carry(*args, **kwargs)
 
     def step(self, carry, param):
         n0 = fp.fan_value_and_grad.launches
+        if self.tier == "cheap":
+            self.states.append(param["y0"])
         out = self.ctrl.step(carry, param)
         self.record.iters.append(out.result.inner_iterations.max())
         self.record.converged.append(out.result.converged.float().mean())
@@ -379,9 +451,20 @@ def suite_setup(cell: SuiteCell, record: StepRecord):
     f_d = discretize(pacejka_dynamics)
     full, cheap = (_Recorded(build_vehicle_controller(
         n_horiz=cell.n_horiz, alm_cfg=cell.alm_cfg, panoc_cfg=cfg,
+        obstacle_weight=cell.obstacle_weight,
+        obstacle_field_kwargs=cell.obstacle_field_kwargs,
         device=dev), record, tier) for cfg, tier in (
             (cell.full_cfg, "straggler"), (cell.cheap_cfg, "cheap")))
     return sc, params, f_d, full, cheap
+
+
+def min_obstacle_distance(states, obstacles) -> float:
+    """The least distance from any car to any of its scenario's obstacles
+    over ``states``, a list of (B, 6) plant states, ``obstacles`` (B, K,
+    4)."""
+    pos = torch.stack(states)[..., None, :2]          # (T, B, 1, 2)
+    d = torch.linalg.vector_norm(pos - obstacles[None, ..., :2], dim=-1)
+    return float(d.min())
 
 
 def suite_batch1(sc, params, f_d, full):
@@ -410,13 +493,16 @@ def run_suite(cell: SuiteCell = CONFIG5) -> dict:
         return run_scenario_suite_two_tier(full, cheap, f_d, sc, params,
                                            n_sim, cell.straggler_pad)
 
-    suite(cell.n_warm_steps)
+    if cell.n_warm_steps:
+        suite(cell.n_warm_steps)
     torch.cuda.synchronize()
     k0 = len(record.iters)
+    cheap.states.clear()
     t0 = time.perf_counter()
     state, conv = suite(cell.n_sim)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    states = cheap.states + [state["ys"]]
     st = state["stats"]
     tiers = record.launches_by_tier(k0)
     r = {
@@ -433,13 +519,30 @@ def run_suite(cell: SuiteCell = CONFIG5) -> dict:
         "fan_launches_straggler_per_step": tiers["straggler"],
     }
     finite = bool(torch.isfinite(state["ys"]).all())
-    n_warm, n_timed = cell.batch1_steps
-    k = len(record.iters)
-    r.update(_batch1_latency(*suite_batch1(sc, params, f_d, full), n_warm,
-                             n_timed))
-    r["single_solve_iters_mean"] = float(
-        torch.stack(record.iters[k + n_warm:]).float().mean())
-    r["states_finite"] = finite and r.pop("single_solve_finite")
+    r["nan_scenarios"] = int((~torch.isfinite(state["ys"])).any(dim=1).sum())
+    if cell.obstacle_weight > 0.0:
+        # the same scenarios and steps through the cell without the term
+        plain = dataclasses.replace(cell, obstacle_weight=0.0,
+                                    obstacle_field_kwargs=None)
+        prec = StepRecord()
+        _, _, _, pfull, pcheap = suite_setup(plain, prec)
+        pstate, _ = run_scenario_suite_two_tier(
+            pfull, pcheap, f_d, sc, params, cell.n_sim, cell.straggler_pad)
+        # that run's K1 launches (on per-lane roads), not the cell's own
+        r["fan_launches_without_term"] = sum(prec.fan_launches)
+        r["min_obstacle_distance"] = min_obstacle_distance(states,
+                                                           sc.obstacles)
+        r["min_obstacle_distance_without_term"] = min_obstacle_distance(
+            pcheap.states + [pstate["ys"]], sc.obstacles)
+    if cell.batch1_steps is not None:
+        n_warm, n_timed = cell.batch1_steps
+        k = len(record.iters)
+        r.update(_batch1_latency(*suite_batch1(sc, params, f_d, full),
+                                 n_warm, n_timed))
+        r["single_solve_iters_mean"] = float(
+            torch.stack(record.iters[k + n_warm:]).float().mean())
+        finite = finite and r.pop("single_solve_finite")
+    r["states_finite"] = finite
     r["inner_iterations_run"] = int(torch.stack(record.iters).sum())
     return r
 
@@ -543,6 +646,65 @@ def run_two_car(cell: TwoCarCell = CONFIG4) -> dict:
     return r
 
 
+def chain_setup(cell: ChainCell, record: StepRecord):
+    """The chain's controller (recorded), plant, floor and disturbed start
+    on the card: ``(ctrl, f_d, static_param, spec, ys)``."""
+    dev = _cuda()
+    spec = ChainSpec(cell.n_balls, cell.dim)
+    params = ChainParams()
+    f_d = discretize(chain_dynamics(spec))
+    ctrl = _Recorded(build_chain_controller(
+        spec, cell.n_horiz, alm_cfg=cell.alm_cfg, panoc_cfg=cell.solver_cfg,
+        device=dev), record)
+    ys = spec.initial_state(cell.batch, device=dev)
+    u = torch.tensor(cell.u_dist, device=dev).expand(cell.batch, -1)
+    for _ in range(cell.n_dist):
+        ys = f_d(ys, u, params)
+    coeff, _ = floor_coefficients(device=dev)
+    return ctrl, f_d, {"p": params, "constr": coeff}, spec, ys
+
+
+@torch.no_grad()
+def run_chain(cell: ChainCell = CHAIN) -> dict:
+    """The hanging chain: a closed loop of ``n_steps`` steps from the
+    disturbed chain, each step timed on the host clock to a sync."""
+    record = StepRecord()
+    ctrl, f_d, static, spec, ys = chain_setup(cell, record)
+    carry = ctrl.init_carry(cell.batch)
+    torch.cuda.synchronize()
+    times, states = [], []
+    for _ in range(cell.n_steps):
+        t0 = time.perf_counter()
+        out = ctrl.step(carry, dict(static, y0=ys))
+        ys, carry = f_d(ys, out.u0, static["p"]), out.carry
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        states.append(ys)
+    ys_all = torch.stack(states)                  # (T, B, state_dim)
+    n, d = spec.n_balls, spec.dim
+    balls = ys_all[..., : n * d].reshape(*ys_all.shape[:2], n, d)
+    _, lb = floor_coefficients()
+    margin = balls[..., d - 1] - g_constr(static["constr"],
+                                          balls[..., 0]) - lb
+    times = np.asarray(times)
+    return {
+        "batch": cell.batch, "n_horiz": cell.n_horiz,
+        "n_steps": cell.n_steps,
+        "solves_per_s": cell.batch * cell.n_steps / float(times.sum()),
+        "p50_step_latency_s": float(np.percentile(times, 50)),
+        "p99_step_latency_s": float(np.percentile(times, 99)),
+        "mean_converged_fraction": float(torch.stack(
+            record.converged).mean()),
+        "failures": int(carry.failures.sum()),
+        "inner_iterations_total": int(carry.tot_it.sum()),
+        "min_floor_margin": float(margin.min()),
+        "free_end_final_distance": float(torch.linalg.vector_norm(
+            ys[:, 2 * n * d:] - spec.x_end(ys.device), dim=1).max()),
+        "states_finite": bool(torch.isfinite(ys_all).all()),
+        "inner_iterations_run": int(torch.stack(record.iters).sum()),
+    }
+
+
 @torch.no_grad()
 def run(cell: Cell = HEADLINE) -> dict:
     """Run the cell's closed loop at its batch (and its batch-1 loop, where
@@ -551,6 +713,8 @@ def run(cell: Cell = HEADLINE) -> dict:
         return run_suite(cell)
     if isinstance(cell, TwoCarCell):
         return run_two_car(cell)
+    if isinstance(cell, ChainCell):
+        return run_chain(cell)
     loop = ClosedLoop(cell)
     sync = torch.cuda.synchronize
     iters_run = []          # per step: the slowest lane's inner iterations
@@ -591,6 +755,7 @@ def run(cell: Cell = HEADLINE) -> dict:
         "inner_iters_max": int(iters.max()),
     }
     finite = bool(torch.isfinite(ys).all())
+    r["nonfinite_lanes"] = int((~torch.isfinite(ys)).any(dim=1).sum())
     if cell.bound_state_constraints:
         r["outer_iters_mean"] = float(torch.stack(outer).float().mean())
         r["outer_iters_max"] = int(torch.stack(outer).max())

@@ -14,7 +14,8 @@ import torch
 
 from mpc_tpu_torch.control.event_triggered import EtcCarry
 from mpc_tpu_torch.control.mpc import MpcCarry
-from mpc_tpu_torch.models.params import KERNEL_PARAM_FIELDS, VehicleParams
+from mpc_tpu_torch.models.params import (KERNEL_PARAM_FIELDS, ChainParams,
+                                          VehicleParams)
 
 
 def vehicle_params_from_numpy(leaves: Mapping[str, np.ndarray]) -> VehicleParams:
@@ -33,6 +34,20 @@ def vehicle_params_from_numpy(leaves: Mapping[str, np.ndarray]) -> VehicleParams
                              "supported")
         kwargs[f] = float(a.reshape(()))
     return VehicleParams(**kwargs)
+
+
+def chain_params_from_numpy(leaves: Mapping[str, np.ndarray]) -> ChainParams:
+    """``ChainParams`` from the JAX ``ChainParams`` fields ``m``, ``D``,
+    ``L`` as numpy scalars (shared by every lane)."""
+    kwargs = {}
+    for f in ("m", "D", "L"):
+        a = np.asarray(leaves[f])
+        if a.size != 1:
+            raise ValueError(f"chain_params_from_numpy: field {f!r} has "
+                             f"shape {a.shape}; only shared scalars are "
+                             "supported")
+        kwargs[f] = float(a.reshape(()))
+    return ChainParams(**kwargs)
 
 
 def _leaf_readers(leaves, device):

@@ -1,4 +1,4 @@
-"""Vehicle parameters (port of mpc_tpu/models/params.py).
+"""Vehicle and hanging-chain parameters (port of mpc_tpu/models/params.py).
 
 Fields are Python floats shared by every lane; ``to_kernel_vec`` packs them
 for the fused fan kernel in the order ``mpc_tpu/ops/fused_psi.py`` uses.
@@ -69,4 +69,19 @@ class VehicleParams:
         order (float32, shape (24,))."""
         return torch.tensor([float(getattr(self, f))
                              for f in KERNEL_PARAM_FIELDS],
+                            dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainParams:
+    """Hanging-chain physical parameters, shared by every lane
+    (mpc_tpu/models/params.py:90-102)."""
+
+    m: Any = 0.03          # ball mass
+    D: Any = 1.6           # spring constant
+    L: Any = 0.033 / 6     # spring rest length (0.033 / N with N = 6)
+
+    def to_vector(self, device=None) -> torch.Tensor:
+        """``[m, D, L]`` (float32)."""
+        return torch.tensor([float(self.m), float(self.D), float(self.L)],
                             dtype=torch.float32, device=device)

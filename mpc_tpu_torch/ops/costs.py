@@ -1,5 +1,5 @@
-"""Vehicle tracking stage cost and its residual form (port of
-mpc_tpu/ops/costs.py:20-79)."""
+"""Stage costs: the vehicle's tracking cost and its residual form, and the
+hanging chain's cost (port of mpc_tpu/ops/costs.py)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ DEFAULT_VEHICLE_WEIGHTS = (0.5, 1.0, 1.0, 0.5, 0.1, 0.01)
 
 def vehicle_stage_cost(x: torch.Tensor, u: torch.Tensor,
                        centerline: torch.Tensor, target_v: float,
-                       c=DEFAULT_VEHICLE_WEIGHTS) -> torch.Tensor:
+                       c=DEFAULT_VEHICLE_WEIGHTS,
+                       errors_fn=compute_errors_ocp) -> torch.Tensor:
     """Per-lane stage cost ``(B,)`` of states ``x`` (B, sd) after inputs
     ``u`` (B, 2):
 
@@ -23,9 +24,11 @@ def vehicle_stage_cost(x: torch.Tensor, u: torch.Tensor,
 
     Speed is ``sqrt(vx^2 + vy^2)`` for the 6-state Pacejka model and ``|v|``
     for the 4-state kinematic model. ``centerline`` is (S, 2), shared, or
-    (B, S, 2), one road per lane.
+    (B, S, 2), one road per lane. ``errors_fn(pos (B, 2), heading (B,),
+    centerline) -> RoadErrors`` gives the road errors
+    (mpc_tpu/ops/costs.py:20-46).
     """
-    err = compute_errors_ocp(x[:, :2], x[:, 2], centerline)
+    err = errors_fn(x[:, :2], x[:, 2], centerline)
     if x.shape[1] >= 5:
         speed = torch.sqrt(x[:, 3] ** 2 + x[:, 4] ** 2)
     else:
@@ -64,3 +67,19 @@ def vehicle_stage_residuals(x: torch.Tensor, u: torch.Tensor,
         w[4] * u[:, 1],
         w[5] * u[:, 0],
     ], dim=1)
+
+
+def chain_stage_cost(y: torch.Tensor, u: torch.Tensor, n_balls: int,
+                     dim: int, x_end: torch.Tensor, alpha: float = 25.0,
+                     beta: float = 1.0, gamma: float = 0.01) -> torch.Tensor:
+    """Hanging-chain stage cost (B,) of states ``y`` (B, state_dim) after
+    inputs ``u`` (B, dim) (mpc_tpu/ops/costs.py:80-92):
+
+      L = alpha ||y3 - x_end||^2 + beta sum_i ||vel_i||^2 + gamma ||u||^2
+    """
+    nd = n_balls * dim
+    y2 = y[:, nd: 2 * nd]
+    y3 = y[:, 2 * nd:]
+    return (alpha * ((y3 - x_end) ** 2).sum(dim=1)
+            + beta * (y2 ** 2).sum(dim=1)
+            + gamma * (u ** 2).sum(dim=1))

@@ -91,9 +91,93 @@ def compute_errors_ocp(pos: torch.Tensor, heading: torch.Tensor,
     (mpc_tpu/ops/road.py:109-122). The points are gathered from the
     centerline by index, so no gradient flows through the selection."""
     np_ = find_nearest_point_ocp(pos, centerline.detach())
-    cte = _cross2(pos - np_.previous, np_.nearest - np_.previous)
-    desired = torch.atan2(np_.next[:, 1] - np_.nearest[:, 1],
-                          np_.next[:, 0] - np_.nearest[:, 0])
-    heading_error = wrap_to_pi(desired - heading)
-    pos_error = _cross2(pos - np_.nearest, np_.next - np_.nearest)
-    return RoadErrors(cte, heading_error, pos_error)
+    return _errors(pos, heading, np_.nearest, np_.previous, np_.next)
+
+
+def find_nearest_point(pos: torch.Tensor, centerline: torch.Tensor):
+    """Diagnostic nearest point over the whole centerline, last point
+    included (mpc_tpu/ops/road.py:88-92): ``(index (B,), point (B, 2))``."""
+    d2 = ((centerline - pos[:, None, :]) ** 2).sum(dim=-1)
+    idx = torch.argmin(d2, dim=1)
+    return idx, _gather(centerline, idx)
+
+
+def _gather(centerline: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Points ``idx`` (B, ...) of a shared (S, 2) or per-lane (B, S, 2)
+    centerline."""
+    if centerline.dim() == 2:
+        return centerline[idx]
+    lanes = torch.arange(idx.shape[0], device=idx.device)
+    return centerline[lanes.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
+def _errors(pos, heading, nearest, prev, nxt) -> RoadErrors:
+    cte = _cross2(pos - prev, nearest - prev)
+    desired = torch.atan2(nxt[:, 1] - nearest[:, 1], nxt[:, 0] - nearest[:, 0])
+    return RoadErrors(cte, wrap_to_pi(desired - heading),
+                      _cross2(pos - nearest, nxt - nearest))
+
+
+def compute_errors_ocp_windowed(pos: torch.Tensor, heading: torch.Tensor,
+                                centerline: torch.Tensor,
+                                center_idx: torch.Tensor,
+                                window: int) -> RoadErrors:
+    """OCP errors with the nearest point searched in a window of
+    ``window`` points (mpc_tpu/ops/road.py:125-154): a quarter behind and
+    three quarters ahead of ``center_idx`` (B,), each lane's nearest point
+    to its solve's initial state. The window's start is clipped into the
+    road and the last point is never selected, so the errors equal
+    :func:`compute_errors_ocp`'s whenever the true nearest point lies in the
+    window. The selected points are constants for the gradient."""
+    centerline = centerline.detach()
+    size = centerline.shape[-2]
+    if not 0 < window <= size:
+        raise ValueError(f"window {window} outside 1..{size}, the "
+                         "centerline's points")
+    start = torch.clamp(center_idx - window // 4, 0, size - window)
+    gidx = start[:, None] + torch.arange(window, device=pos.device)
+    d2 = ((_gather(centerline, gidx) - pos[:, None, :]) ** 2).sum(dim=2)
+    d2 = torch.where(gidx <= size - 2, d2, torch.full_like(d2, float("inf")))
+    idx = start + torch.argmin(d2, dim=1)
+    return _errors(pos, heading, _gather(centerline, idx),
+                   _gather(centerline, torch.clamp(idx - 1, min=0)),
+                   _gather(centerline, idx + 1))
+
+
+def compute_errors_diagnostic(pos: torch.Tensor, heading: torch.Tensor,
+                              centerline: torch.Tensor) -> RoadErrors:
+    """Diagnostic errors (mpc_tpu/ops/road.py:157-174): the nearest point
+    over the whole road, the previous point wrapping to the last at index 0
+    and the next clamped at the end, cross products normalised by the
+    segments' lengths."""
+    size = centerline.shape[-2]
+    idx, nearest = find_nearest_point(pos, centerline)
+    prev = _gather(centerline, torch.remainder(idx - 1, size))
+    nxt = _gather(centerline, torch.clamp(idx + 1, max=size - 1))
+    w, w_next = nearest - prev, nxt - nearest
+    cte = _cross2(pos - prev, w) / torch.linalg.vector_norm(w, dim=1)
+    desired = torch.atan2(nxt[:, 1] - nearest[:, 1], nxt[:, 0] - nearest[:, 0])
+    pos_error = _cross2(pos - nearest, w_next) \
+        / torch.linalg.vector_norm(w_next, dim=1)
+    return RoadErrors(cte, wrap_to_pi(desired - heading), pos_error)
+
+
+class Road:
+    """The reference's ``Road`` (mpc_tpu/ops/road.py:182-199): a centerline,
+    by default the 100-point circle of radius 5 about (0, 5), and its
+    diagnostic lookups over a batch of positions (B, 2)."""
+
+    def __init__(self, center=None, device=None):
+        if center is None:
+            self.centerline = circle_centerline(device=device)
+        else:
+            self.centerline = torch.as_tensor(center, dtype=torch.float32,
+                                              device=device)
+
+    def find_nearest_point(self, vehicle_position: torch.Tensor):
+        return find_nearest_point(vehicle_position, self.centerline)
+
+    def compute_errors(self, vehicle_position: torch.Tensor,
+                       vehicle_heading: torch.Tensor) -> RoadErrors:
+        return compute_errors_diagnostic(vehicle_position, vehicle_heading,
+                                         self.centerline)

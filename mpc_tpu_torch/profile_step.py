@@ -2,7 +2,7 @@
 fan kernel's share of it, device kernels per step, and the device's idle
 share. Same controllers, roads and initial states as ``mpc_tpu_torch.bench``.
 
-    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc|config5|config4]
+    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain]
 
 For the cell's batch (and its batch-1 loop's, where it has one): the cell's
 warm-up steps, then 3 steps (1 for ss_n40, whose step runs some 1,500
@@ -16,7 +16,13 @@ For config5 it is the first 3 steps of the two-tier suite after its
 untimed 2-step pass, both tiers; the fan kernel's time is also split by
 tier (each tier's launches, counted per controller step, in launch
 order), which gives the straggler lanes' share of K1 time. For config4 it is the first 3
-steps of the two-car loop after a warm loop.
+steps of the two-car loop after a warm loop. The cells of the plain OCP
+(ms_n40_m8, config5_obs, chain), whose fans launch some 10^4 kernels per
+PANOC iteration over hundreds of iterations a step, are profiled over one
+controller step at the cell's batch with one outer iteration of at most
+``CAPPED_ITERS`` PANOC iterations (config5_obs: its cheap tier over all
+lanes), from the cell's start: the kernels per iteration and the idle
+share of an iteration.
 The first time they are timed on the host clock, with a synchronise after
 each and no profiler. The second time they run under ``torch.profiler``.
 They are deterministic, so both runs do the same work; the script checks
@@ -40,14 +46,16 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mpc_tpu_torch.bench import (CELLS, ClosedLoop, StepRecord, SuiteCell,
-                                 TwoCarCell, gpu_info, suite_setup,
-                                 two_car_setup)
+from mpc_tpu_torch.bench import (CELLS, ChainCell, ClosedLoop, StepRecord,
+                                 SuiteCell, TwoCarCell, chain_setup,
+                                 gpu_info, suite_setup, two_car_setup)
 from mpc_tpu_torch.config import IlqrConfig
 from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
 
 N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1, "ilqr_n40": 2,
               "etc": 12, "config5": 3, "config4": 3}
+UNFUSED = ("ms_n40_m8", "config5_obs", "chain")
+CAPPED_ITERS = 4      # one chunk of masked PANOC iterations
 FAN_KERNEL = "fused_psi_fan"   # K1-K3: instances of fused_psi_fan_phased
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -288,6 +296,58 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     return r
 
 
+@torch.no_grad()
+def profile_unfused(cell) -> dict:
+    """A cell of the plain OCP: one controller step at the cell's batch
+    from its start, one outer iteration of at most ``CAPPED_ITERS`` PANOC
+    iterations (config5_obs: its cheap tier over every lane, chain: from
+    the disturbed chain). No fan kernel may run."""
+    alm = dataclasses.replace(cell.alm_cfg, max_iter=1) \
+        if cell.alm_cfg is not None else None
+    record = StepRecord()
+    if isinstance(cell, SuiteCell):
+        capped = dataclasses.replace(
+            cell, alm_cfg=alm, cheap_cfg=dataclasses.replace(
+                cell.cheap_cfg, max_iter=CAPPED_ITERS))
+        sc, params, _, _, ctrl = suite_setup(capped, record)
+        param = {"y0": sc.y0, "p": params, "centerline": sc.centerline,
+                 "obstacles": sc.obstacles}
+        batch = cell.batch
+    elif isinstance(cell, ChainCell):
+        from mpc_tpu_torch.config import AlmConfig
+        capped = dataclasses.replace(
+            cell, alm_cfg=AlmConfig(eps=1e-4, delta=1e-4, sigma_0=1e5,
+                                    max_iter=1, eps_0=1e-2),
+            solver_cfg=dataclasses.replace(cell.solver_cfg,
+                                           max_iter=CAPPED_ITERS))
+        ctrl, _, static, _, ys = chain_setup(capped, record)
+        param, batch = dict(static, y0=ys), cell.batch
+    else:
+        capped = dataclasses.replace(
+            cell, alm_cfg=alm, solver_cfg=dataclasses.replace(
+                cell.solver_cfg, max_iter=CAPPED_ITERS))
+        loop = ClosedLoop(capped)
+        ys, _ = loop.start(cell.batch)
+        ctrl, batch = loop.ctrl, cell.batch
+        param = {"y0": ys, "p": loop.params, "centerline": loop.centerline}
+    carry = ctrl.init_carry(batch)
+    ctrl.step(carry, param)           # warm-up: the allocator's first pass
+    torch.cuda.synchronize()
+
+    def work():
+        t0 = time.perf_counter()
+        out = ctrl.step(carry, param)
+        torch.cuda.synchronize()
+        return [time.perf_counter() - t0], \
+            [int(out.result.inner_iterations.max())]
+
+    walls, iters, prof_walls, dev, path = _profile(work, cell.name, batch)
+    r, _ = _summary(cell.name, batch,
+                    f"one step capped at {CAPPED_ITERS} PANOC iterations",
+                    walls, iters, prof_walls, dev, path, has_fan=False)
+    return r
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     name = argv[0] if argv else "headline"
@@ -296,6 +356,12 @@ def main(argv=None):
                          f"[{'|'.join(CELLS)}]")
     info = gpu_info()
     cell = CELLS[name]
+    if name in UNFUSED:
+        r = dict(profile_unfused(cell), device=info["name"],
+                 power_limit=info["power_limit"])
+        print(json.dumps({"profile": r}), flush=True)
+        print(info["nvidia_smi"])
+        return
     if isinstance(cell, (SuiteCell, TwoCarCell)):
         r = profile_suite(cell) if isinstance(cell, SuiteCell) \
             else profile_two_car(cell)

@@ -3,14 +3,12 @@ mpc_tpu/sim/scenarios.py).
 
 Every lane carries its own road: the controller's ``centerline`` is the
 (B, S, 2) stack of the scenarios' roads, and the candidate fan reads lane
-e's road at road stride K (``ops/fused_psi.py``). The reference's pad-shape
-precompile and its cache of jitted steppers (``_TWO_TIER_CACHE``) exist only
-to avoid XLA compiles and are not ported.
-
-The obstacle field is not ported (``build_vehicle_ocp(obstacle_weight > 0)``
-raises), so no controller of the port uses the scenarios' obstacles: the
-suites roll out the roads alone, as the reference does for a controller
-without the obstacle term.
+e's road at road stride K (``ops/fused_psi.py``). When the controller's
+cost has the obstacle field (``problem.uses_obstacles``), each lane also
+carries its own obstacles, ``obstacles`` (B, K, 4), as in the reference
+(mpc_tpu/sim/scenarios.py:108-115). The reference's pad-shape precompile
+and its cache of jitted steppers (``_TWO_TIER_CACHE``) exist only to avoid
+XLA compiles and are not ported.
 """
 
 from __future__ import annotations
@@ -123,13 +121,28 @@ def _sync(t: torch.Tensor):
         torch.cuda.synchronize(t.device)
 
 
+def _suite_param(controller, params, scenarios: ScenarioBatch,
+                 idx: Optional[torch.Tensor] = None) -> dict:
+    """The parameters of the scenarios' lanes (those ``idx`` when given)
+    without ``y0``: the roads, and the obstacles where the controller's
+    cost reads them."""
+    def lanes(t):
+        return t if idx is None else t[idx]
+
+    param = {"p": params, "centerline": lanes(scenarios.centerline)}
+    if controller.problem.uses_obstacles:
+        param["obstacles"] = lanes(scenarios.obstacles)
+    return param
+
+
 def run_scenario_suite(controller: MpcController, f_d: Callable,
                        scenarios: ScenarioBatch, params,
                        n_sim: int) -> ClosedLoopOut:
     """Roll every scenario end to end (mpc_tpu/sim/scenarios.py:102-121):
-    the closed loop over the batch, each lane on its own road."""
+    the closed loop over the batch, each lane on its own road and with its
+    own obstacles where the cost reads them."""
     return run_closed_loop(controller, f_d, scenarios.y0,
-                           {"p": params, "centerline": scenarios.centerline},
+                           _suite_param(controller, params, scenarios),
                            n_sim, params)
 
 
@@ -143,8 +156,9 @@ def run_scenario_suite_two_tier(controller: MpcController,
 
     Each step, (1) the cheap pass: one step of every lane through
     ``controller_cheap`` (the same OCP with a low iteration cap); (2) the
-    straggler pass: the lanes whose cheap solve failed, gathered from the
-    step's starting states and carries into a batch padded to
+    straggler pass: the lanes whose cheap solve failed, gathered with
+    their roads (and obstacles) from the step's starting states and
+    carries into a batch padded to
     ``straggler_pad * 2^j`` lanes by repeating them (``np.resize``), are
     solved again through ``controller`` (the full budget) and scattered
     back. Duplicate lanes carry identical results, so the scatter of the
@@ -162,13 +176,11 @@ def run_scenario_suite_two_tier(controller: MpcController,
     b = scenarios.y0.shape[0]
     dev = scenarios.y0.device
     carries = controller.init_carry(b, device=dev)
-    cls = scenarios.centerline
     ys = scenarios.y0
 
     def tier_step(ctrl, y, carry, idx=None):
-        out = ctrl.step(carry, {"y0": y, "p": params,
-                                "centerline": cls if idx is None
-                                else cls[idx]})
+        out = ctrl.step(carry, dict(_suite_param(ctrl, params, scenarios,
+                                                 idx), y0=y))
         return f_d(y, out.u0, params), out.carry, out.result.converged
 
     convs = []
@@ -225,12 +237,12 @@ def run_scenario_suite_resumable(controller: MpcController, f_d: Callable,
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
         state, step = load_checkpoint(checkpoint_path, state)
     convs = []
+    static = _suite_param(controller, params, scenarios)
     while step < n_sim:
         ys, carries = state["ys"], state["carries"]
         conv = []
         for _ in range(segment):
-            out = controller.step(carries, {
-                "y0": ys, "p": params, "centerline": scenarios.centerline})
+            out = controller.step(carries, dict(static, y0=ys))
             ys = f_d(ys, out.u0, params)
             carries = out.carry
             conv.append(out.result.converged)

@@ -124,19 +124,27 @@ def _make_general_path(problem, alm_cfg, panoc_cfg):
     """The outer multiplier/penalty loop (mpc_tpu/solver/alm.py:135-311)."""
     m, D = problem.m, problem.D
 
-    def al_terms(u, param, lam, sigma):
-        """``(zeta - zhat, g - zhat)``, the AL residual and the violation."""
-        g = problem.constraints(u, param)
+    def al_terms(g, lam, sigma):
+        """``(zeta - zhat, g - zhat)`` of constraint values ``g``: the AL
+        residual and the violation."""
         zhat = project(g + lam / sigma, D)
         return g + lam / sigma - zhat, g - zhat
+
+    # the AL objective takes cost and constraints from one rollout where the
+    # problem gives both (mpc_tpu/solver/alm.py:136-146 leaves that to XLA)
+    if problem.cost_constraints is not None:
+        cost_constraints = problem.cost_constraints
+    else:
+        def cost_constraints(u, param):
+            return problem.cost(u, param), problem.constraints(u, param)
 
     def psi_vg(u, args):
         param, lam, sigma = args
 
         def psi(u_, param):
-            r, _ = al_terms(u_, param, lam, sigma)
-            return problem.cost(u_, param) \
-                + 0.5 * (sigma * r ** 2).sum(dim=1)
+            f, g = cost_constraints(u_, param)
+            r, _ = al_terms(g, lam, sigma)
+            return f + 0.5 * (sigma * r ** 2).sum(dim=1)
 
         return value_and_grad(psi, u, param)
 
@@ -213,7 +221,8 @@ def _make_general_path(problem, alm_cfg, panoc_cfg):
             res = panoc(st.u, tol_k, (param, st.lam, st.sigma),
                         gamma_init=st.gamma)
 
-            r, e = al_terms(res.u, param, st.lam, st.sigma)
+            r, e = al_terms(problem.constraints(res.u, param), st.lam,
+                            st.sigma)
             viol = e.abs().amax(dim=1)
             # inexact ALM: lam is updated even when the inner solve hit its
             # iteration cap (mpc_tpu/solver/alm.py:233-240)

@@ -22,7 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from mpc_tpu_torch.config import PanocConfig
-from mpc_tpu_torch.solver.problem import Box, project
+from mpc_tpu_torch.solver.problem import Box, fold_lanes, project
 
 #: masked iterations run between two all-lanes-done checks (host syncs)
 _CHUNK = 4
@@ -160,6 +160,93 @@ class _State(NamedTuple):
     trace: Any = None
 
 
+def candidate_fan(psi_vg: Callable, cands: torch.Tensor, args: Any,
+                  graphs: Optional[dict] = None):
+    """``(psi (B, K), grad (B, K, n))`` of ``psi_vg`` at the candidates
+    ``cands`` (B, K, n) in one call over B*K lanes, lane b's K candidates
+    in a row, with the per-lane tensors of ``args`` repeated K times
+    (``problem.fold_lanes``). On a CUDA device, with ``graphs`` (a dict the
+    caller keeps), the call is replayed from a CUDA graph of it, one per
+    shape of its inputs (:class:`_FanGraph`)."""
+    B, K, n = cands.shape
+    flat, fargs = cands.reshape(B * K, n), fold_lanes(args, K)
+    if graphs is None or not cands.is_cuda:
+        psi, grad = psi_vg(flat, fargs)
+    else:
+        leaves, spec = _flatten(fargs)
+        key = (tuple(flat.shape), spec,
+               tuple((tuple(t.shape), t.dtype) for t in leaves))
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = _FanGraph(psi_vg, flat, leaves, spec)
+        psi, grad = graph(flat, leaves)
+    return psi.reshape(B, K), grad.reshape(B, K, n)
+
+
+def _flatten(tree):
+    """``(tensors, spec)``: the tensors of a tree of dicts, tuples and
+    lists in order, and the tree with each tensor replaced by None (its
+    other leaves, e.g. the vehicle parameters, kept: they key the graph)."""
+    if torch.is_tensor(tree):
+        return [tree], None
+    if isinstance(tree, dict):
+        leaves, items = [], []
+        for key, v in tree.items():
+            sub, spec = _flatten(v)
+            leaves += sub
+            items.append((key, spec))
+        return leaves, ("dict", tuple(items))
+    if isinstance(tree, (tuple, list)):
+        leaves, specs = [], []
+        for v in tree:
+            sub, spec = _flatten(v)
+            leaves += sub
+            specs.append(spec)
+        return leaves, (type(tree), tuple(specs))
+    return [], ("leaf", tree)
+
+
+def _unflatten(spec, leaves):
+    if spec is None:
+        return next(leaves)
+    kind, body = spec
+    if kind == "dict":
+        return {key: _unflatten(sub, leaves) for key, sub in body}
+    if kind == "leaf":
+        return body
+    return kind(_unflatten(sub, leaves) for sub in body)
+
+
+class _FanGraph:
+    """The unfused fan ``psi_vg(u, args)`` (its rollouts, stage costs and
+    autograd's reverse sweep: some 10^4 small kernels) captured once into a
+    CUDA graph over static copies of its inputs, then replayed: the inputs
+    are copied in, the graph replayed, the outputs copied out. The graph
+    runs the same kernels as the eager call on the same values, so its
+    outputs are the eager call's; it only spares the host their launches."""
+
+    def __init__(self, psi_vg: Callable, u: torch.Tensor, leaves, spec):
+        self.u = u.clone()
+        self.leaves = [t.clone() for t in leaves]
+        args = _unflatten(spec, iter(self.leaves))
+        side = torch.cuda.Stream(u.device)
+        side.wait_stream(torch.cuda.current_stream(u.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):           # warm-up, outside the capture
+                psi_vg(self.u, args)
+        torch.cuda.current_stream(u.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.psi, self.grad = psi_vg(self.u, args)
+
+    def __call__(self, u: torch.Tensor, leaves):
+        self.u.copy_(u)
+        for dst, src in zip(self.leaves, leaves):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.psi.clone(), self.grad.clone()
+
+
 def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
                       psi_vg_multi: Optional[Callable] = None,
                       progress_callback: Optional[Callable] = None
@@ -169,17 +256,21 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
     ``psi_vg(u (B, n), args) -> (psi (B,), grad (B, n))`` is the value and
     gradient of the smooth objective. ``psi_vg_multi(cands (B, K, n), args)
     -> (psi (B, K), grad (B, K, n))``, when given, evaluates the candidate
-    fan in one call (the fused kernel); otherwise ``psi_vg`` is called once
-    per candidate. ``progress_callback(iters, psi, criterion, gamma)`` is
-    called on the host after every masked iteration with (B,) tensors.
+    fan in one call (the fused kernel); otherwise it is
+    :func:`candidate_fan`, one call of ``psi_vg`` over B*K lanes, the port
+    of ``jax.vmap(psi_vg)`` over the candidates
+    (mpc_tpu/solver/panoc.py:178-179), replayed from a CUDA graph on the
+    card. ``progress_callback(iters, psi,
+    criterion, gamma)`` is called on the host after every masked iteration
+    with (B,) tensors.
     """
     if psi_vg_multi is not None:
         cand_vg = psi_vg_multi
     else:
+        graphs = {}
+
         def cand_vg(cands, args):
-            outs = [psi_vg(cands[:, k], args) for k in range(cands.shape[1])]
-            return (torch.stack([o[0] for o in outs], dim=1),
-                    torch.stack([o[1] for o in outs], dim=1))
+            return candidate_fan(psi_vg, cands, args, graphs)
 
     taus = tuple(float(t) for t in cfg.taus)
 

@@ -611,3 +611,109 @@ def test_ilqr_controller_defaults_to_the_card(cuda):
                             "centerline": straight_centerline(100,
                                                               device=cuda)})
     assert out.u0.is_cuda and bool(out.result.converged.all())
+
+
+# ---------------------------------------------------------------------------
+# The plain OCP (windowed search, obstacle field), multiple shooting and the
+# hanging chain: no kernel, batched torch ops and autograd on the card
+# ---------------------------------------------------------------------------
+
+def _unfused_case(variant, dev):
+    """``(controller, param)`` of one small unfused path on ``dev``."""
+    from mpc_tpu_torch.control.chain_mpc import (build_chain_controller,
+                                                 floor_coefficients)
+    from mpc_tpu_torch.control.mpc import build_vehicle_ms_controller
+    from mpc_tpu_torch.models.chain import ChainSpec, chain_dynamics
+    from mpc_tpu_torch.models.integrators import discretize
+    from mpc_tpu_torch.models.params import ChainParams
+    B, n_horiz = 4, 8
+    rng = np.random.default_rng(11)
+    y0 = np.zeros((B, 6), np.float32)
+    y0[:, 1] = rng.uniform(-0.03, 0.03, B)
+    y0[:, 3] = rng.uniform(0.4, 0.9, B)
+    param = {"y0": torch.as_tensor(y0, device=dev), "p": VehicleParams(),
+             "centerline": straight_centerline(100, device=dev)}
+    field = {"a_f": 1.0, "sigma_x": 0.2}
+    obstacles = torch.tensor([[1.0, 0.05, 0.0, 0.0], [0.5, -0.04, 0.0, 0.1]],
+                             device=dev)
+    alm, panoc = AlmConfig(eps=1e-4), PanocConfig(lbfgs_memory=n_horiz,
+                                                  max_iter=150)
+    if variant == "window":
+        ctrl = build_vehicle_controller(n_horiz=n_horiz, alm_cfg=alm,
+                                        panoc_cfg=panoc, window=16,
+                                        device=dev)
+    elif variant == "obstacles":
+        ctrl = build_vehicle_controller(
+            n_horiz=n_horiz, alm_cfg=alm, panoc_cfg=panoc,
+            obstacle_weight=1.0, obstacle_field_kwargs=field, device=dev)
+        param["obstacles"] = obstacles[None].expand(B, 2, 4).contiguous()
+    elif variant == "ilqr_obstacles":
+        ctrl = build_vehicle_ilqr_controller(
+            n_horiz=n_horiz, obstacle_weight=2.0,
+            obstacle_field_kwargs=field, device=dev)
+        param["obstacles"] = obstacles[:1]
+    elif variant == "ms":
+        ctrl, _ = build_vehicle_ms_controller(
+            n_horiz=n_horiz, n_segments=4,
+            panoc_cfg=PanocConfig(lbfgs_memory=16, max_iter=250),
+            device=dev)
+        param["y0"] = torch.zeros((2, 6), device=dev)
+        param["y0"][:, 3] = torch.tensor([0.5, 1.0], device=dev)
+    else:
+        spec = ChainSpec(6, 2)
+        f_d = discretize(chain_dynamics(spec))
+        y = spec.initial_state(1, device=dev)
+        for _ in range(3):
+            y = f_d(y, torch.tensor([[-0.5, 0.5]], device=dev), ChainParams())
+        ctrl = build_chain_controller(spec, 4, device=dev)
+        param = {"y0": y, "p": ChainParams(),
+                 "constr": floor_coefficients(device=dev)[0]}
+    return ctrl, param
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["window", "obstacles", "ilqr_obstacles",
+                                     "ms", "chain"])
+def test_unfused_step_on_card_matches_cpu(cuda, variant):
+    # One cold step of an unfused path on the card against the same step on
+    # the CPU: no fan kernel may launch on the card.
+    wrappers = (fp.fan_value_and_grad, fp.kin_fan_value_and_grad,
+                fp.al_fan_value_and_grad)
+    out = {}
+    for dev in ("cpu", cuda):
+        ctrl, param = _unfused_case(variant, dev)
+        before = [w.launches for w in wrappers]
+        with torch.no_grad():
+            res = ctrl.step(ctrl.init_carry(param["y0"].shape[0]), param)
+        assert [w.launches for w in wrappers] == before
+        out[str(dev)] = res
+    r_cpu, r_gpu = out["cpu"], out["cuda"]
+    assert r_gpu.u0.device.type == "cuda"
+    np.testing.assert_array_equal(r_gpu.result.converged.cpu().numpy(),
+                                  r_cpu.result.converged.numpy())
+    np.testing.assert_allclose(r_gpu.u0.cpu().numpy(), r_cpu.u0.numpy(),
+                               rtol=0, atol=5e-3)
+    assert bool(torch.isfinite(r_gpu.result.u).all())
+
+
+@pytest.mark.cuda
+def test_suite_with_obstacles_on_card(cuda):
+    # a two-tier suite step with per-lane obstacles on the card: finite,
+    # no fan kernel
+    from mpc_tpu_torch.models.bicycle import pacejka_dynamics
+    from mpc_tpu_torch.models.integrators import discretize
+    from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
+    sc = random_scenarios(8, 100, generator=torch.Generator().manual_seed(2),
+                          device=cuda)
+    full, cheap = (build_vehicle_controller(
+        n_horiz=8, alm_cfg=AlmConfig(eps=1e-3),
+        panoc_cfg=PanocConfig(lbfgs_memory=8, max_iter=it),
+        obstacle_weight=1.0, obstacle_field_kwargs={"a_f": 1.0,
+                                                    "sigma_x": 0.2},
+        device=cuda) for it in (60, 3))
+    before = fp.fan_value_and_grad.launches
+    state, conv = run_scenario_suite_two_tier(
+        full, cheap, discretize(pacejka_dynamics), sc, VehicleParams(), 2,
+        straggler_pad=4)
+    assert fp.fan_value_and_grad.launches == before
+    assert bool(torch.isfinite(state["ys"]).all()) and conv.shape == (8, 2)

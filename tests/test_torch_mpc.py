@@ -93,11 +93,17 @@ def test_cold_and_warm_steps_match_jax():
 
 def test_unported_options_raise():
     # the kinematic model and the bounded state constraints are ported
-    # (tests/test_torch_mpc_config1.py, tests/test_torch_mpc_constrained.py)
+    # (tests/test_torch_mpc_config1.py, tests/test_torch_mpc_constrained.py),
+    # and so are the windowed search and the obstacle field, which choose
+    # the plain OCP (tests/test_torch_obstacle.py); the horizon-sharded
+    # AL-iLQR is the option left, and it raises
     import pytest
     for kw in ({"window": 20}, {"obstacle_weight": 1.0}):
-        with pytest.raises(NotImplementedError):
-            tmpc.build_vehicle_ocp(n_horiz=4, device="cpu", **kw)
+        prob = tmpc.build_vehicle_ocp(n_horiz=4, device="cpu", **kw)
+        assert prob.cost_multi is None
+    with pytest.raises(NotImplementedError, match="sharded"):
+        tmpc.build_vehicle_ilqr_controller(n_horiz=4, mesh=object(),
+                                           device="cpu")
 
 
 def _port_modules():

@@ -183,9 +183,9 @@ def test_default_device_and_unported_options():
         pytest.skip("checks the behaviour without a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmpc.build_vehicle_ilqr_controller(n_horiz=4)
-    with pytest.raises(NotImplementedError, match="obstacle"):
-        tmpc.build_vehicle_ilqr_controller(n_horiz=4, obstacle_weight=1.0,
-                                           device="cpu")
+    # the obstacle field is ported (tests/test_torch_obstacle_ilqr.py)
+    assert tmpc.build_vehicle_ilqr_controller(
+        n_horiz=4, obstacle_weight=1.0, device="cpu").problem.uses_obstacles
     with pytest.raises(NotImplementedError, match="sharded"):
         tmpc.build_vehicle_ilqr_controller(n_horiz=4, mesh=object(),
                                            device="cpu")
