@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --timing
 
-It drives the port's ten paths. Four go each through its own fan kernel
+It drives the port's thirteen paths. Four go each through its own fan kernel
 of csrc/fused_psi.cu, all instances of one phased kernel: the headline
 (Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2), ss_n40
 (bounded state constraints through the ALM general path, N=40; K3) and
@@ -14,7 +14,10 @@ the headline's controller) runs K1, and config 4 (the two-car game, each
 car on its lane's road) runs K1 roads. Three run the plain OCP, whose fan
 is autograd over B*K lanes and launches no kernel: ms_n40_m8 (multiple
 shooting), config5_obs (config 5 with the obstacle field) and chain (the
-hanging chain). Phases, each of which fails the run with a nonzero exit:
+hanging chain). Three run the sharded package (mpc_tpu_torch/parallel/):
+mesh_dp (the scenario-sharded solver; K1), mesh_lqt (the horizon-sharded
+LQT) and mesh_ilqr (the batched AL-iLQR over it). Phases, each of which
+fails the run with a nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
@@ -104,7 +107,20 @@ hanging chain). Phases, each of which fails the run with a nonzero exit:
    converged flags equal; then AL-iLQR with the obstacle field on the
    scenario of tests/test_obstacle_avoidance.py (N=12, 4 steps at batch
    1), every step converged, its first step within 2e-3 of the same
-   controller on the CPU.
+   controller on the CPU;
+8. the sharded paths ("parallel", ``parallel_phase``): (a) a world of one
+   rank on NCCL in this process at full width: mesh_dp's solve equal to
+   the unsharded solve bit for bit, K1 on mesh_dp's fans against its plain
+   version and timed, mesh_dp, mesh_lqt (against the float64 KKT solution
+   to 2e-4) and mesh_ilqr (converged >= 0.98, no fan kernel) through the
+   bench with the counts reset (mesh_dp's K1 launches at least its PANOC
+   iterations), 3 steps of the sharded closed loop; (b) 2 ranks on the one
+   card, worker processes with gloo collectives on CUDA tensors (NCCL
+   cannot put two ranks on one GPU): the solver on (2, 1) and (1, 2)
+   meshes at batch 64, the LQT on (1, 2) at N=512 and a mesh_ilqr step on
+   (1, 2), each against (a) within the CPU tests' bands (the inner
+   iterations' band at N=40); (c) with more than one card, (b) on NCCL,
+   else a line saying it was not run.
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -117,6 +133,7 @@ on one card (run them in turns: the first, the second, the second, the
 first).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -251,6 +268,30 @@ class Capture(NamedTuple):
     batch1: bool = False  # the cell's batch-1 loop, not its batched run
 
 
+@contextlib.contextmanager
+def recording(name, stamp=lambda: 0):
+    """``fp.<name>`` replaced by a wrapper that records every call as
+    ``(stamp(), args)``, each ``args`` cloned; yields the list. The
+    wrapper counts its launches on whatever fp.<name> names: the
+    recording's launches land on the recorder and are dropped."""
+    import torch
+    from mpc_tpu_torch.ops import fused_psi as fp
+    wrapper = getattr(fp, name)
+    calls = []
+
+    def recorder(*args):
+        calls.append((stamp(), tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args)))
+        return wrapper(*args)
+
+    recorder.launches = recorder.road_launches = 0
+    setattr(fp, name, recorder)
+    try:
+        yield calls
+    finally:
+        setattr(fp, name, wrapper)
+
+
 def capture_fan_inputs(name, source):
     """The inputs of every call of the fan wrapper ``fp.<name>`` in the
     first ``source.steps`` closed-loop steps of ``source``, as the path gives
@@ -260,25 +301,13 @@ def capture_fan_inputs(name, source):
     suite step's cheap and straggler passes are two)."""
     import torch
     from mpc_tpu_torch import bench
-    from mpc_tpu_torch.ops import fused_psi as fp
     cell = getattr(bench, source.cell)
-    wrapper = getattr(fp, name)
     # a recorded controller's steps number the calls of the suite and the
     # game; the closed loop counts its own (and an earlier commit's bench,
     # timed by this script, has no StepRecord)
-    calls, step, records = [], [0], []
-
-    def recording(*args):
-        calls.append((step[0] + sum(len(r.iters) for r in records),
-                      tuple(a.clone() if torch.is_tensor(a) else a
-                            for a in args)))
-        return wrapper(*args)
-
-    # the wrapper counts its launches on whatever fp.<name> names; the
-    # capture's launches land here and are dropped
-    recording.launches = recording.road_launches = 0
-    setattr(fp, name, recording)
-    try:
+    step, records = [0], []
+    with recording(name, lambda: step[0] + sum(len(r.iters)
+                                               for r in records)) as calls:
         with torch.no_grad():
             if isinstance(cell, getattr(bench, "SuiteCell", ())):
                 from mpc_tpu_torch.sim.scenarios import \
@@ -306,8 +335,6 @@ def capture_fan_inputs(name, source):
                 for step[0] in range(source.steps):
                     ys, carry, _ = loop.step(ys, carry)
         torch.cuda.synchronize()
-    finally:
-        setattr(fp, name, wrapper)
     return calls
 
 
@@ -791,6 +818,282 @@ def ilqr_obstacle_phase(fp, info):
           f"{info['nvidia_smi']}")
 
 
+# ---- the sharded paths (mpc_tpu_torch/parallel/) ----------------------------
+
+PAR_U_BAND = 5e-3       # inputs between meshes (tests/test_torch_sharding.py)
+PAR_LQT_TOL = 2e-3      # us, xs, Ko, ko between meshes
+# inner iterations per outer iteration, at N=40: the float32 rounding of
+# the tol_dcost exit moves the JAX package's own counts by 3 when its inputs
+# move by an ulp (ROADMAP Queue 3; tests/test_torch_ilqr_depth.py holds 3;
+# the N=8 CPU tests hold 2)
+PAR_INNER_BAND = 3
+PAR_SOLVER = dict(batch=64, max_iter=100)   # the 2-rank solver runs
+PAR_TIMEOUT = 400       # seconds for the 2-rank launch, every rank killed
+
+
+def parallel_phase(bench, fp, info, k1):
+    """Phase 8, the sharded paths (``mpc_tpu_torch/parallel/``).
+
+    (a) A world of one rank on NCCL in this process, at full width: the
+    world-1 ``mesh_dp`` solve against the unsharded ``build_vehicle_ocp`` +
+    ``make_alm_solver`` on the same inputs, bit for bit (the same kernels;
+    the gather is a copy); K1 on mesh_dp's fans (E = 1280, 512) against its
+    plain version and timed; ``mesh_dp``, ``mesh_lqt`` (against the float64
+    KKT solution) and ``mesh_ilqr`` through the bench, each with the launch
+    counts reset just before it (mesh_dp must launch K1 once per PANOC
+    iteration at least, mesh_ilqr no fan kernel); 3 steps of
+    ``make_sharded_closed_loop``; and the references of (b).
+
+    (b) Two ranks on the one card, processes of
+    ``mpc_tpu_torch.parallel._dist_worker`` with gloo collectives on CUDA
+    tensors (NCCL cannot put two ranks on one GPU): the solver on (2, 1)
+    and (1, 2) meshes (``PAR_SOLVER``), the LQT on a (1, 2) horizon mesh at
+    N = 512 and one mesh_ilqr step on (1, 2), each held against (a) within
+    the CPU tests' bands.
+
+    (c) With more than one card, (b) on NCCL, one rank per card.
+
+    ``k1`` is K1's row of measurements, which gets mesh_dp's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mpc_tpu_torch.control.mpc import build_vehicle_ocp
+    from mpc_tpu_torch.models.params import VehicleParams
+    from mpc_tpu_torch.parallel._dist_worker import LQT_ARGS, launch
+    from mpc_tpu_torch.parallel.distributed import initialize_world
+    from mpc_tpu_torch.parallel.lqr_sharded import make_lqt_horizon_sharded
+    from mpc_tpu_torch.parallel.mesh import make_horizon_mesh, make_mesh
+    from mpc_tpu_torch.parallel.sharding import (make_sharded_closed_loop,
+                                                 make_sharded_vehicle_solver)
+    from mpc_tpu_torch.solver.alm import make_alm_solver
+    t_phase = time.perf_counter()
+    p = VehicleParams()
+
+    # ---- (a) ----
+    initialize_world()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"parallel (a): a world of {dist.get_world_size()} on "
+             f"{dist.get_backend()}, not one rank on NCCL")
+    mesh = make_mesh(1, 1)
+    cell = bench.MESH_DP
+    y0s, cl, U0s, lam0s = bench.mesh_dp_inputs(cell.batch, cell.n_horiz,
+                                               "cuda")
+    solve = make_sharded_vehicle_solver(mesh, n_horiz=cell.n_horiz,
+                                        alm_cfg=bench.MESH_DP_ALM,
+                                        panoc_cfg=bench.MESH_DP_PANOC)
+    plain = make_alm_solver(build_vehicle_ocp(cell.n_horiz, device="cuda"),
+                            bench.MESH_DP_ALM, bench.MESH_DP_PANOC)
+    with torch.no_grad(), recording("fan_value_and_grad") as calls:
+        got = solve(y0s, cl, p, U0s, lam0s)
+    want = plain({"y0": y0s, "p": p, "centerline": cl}, U0s, lam0s)
+    for name, g, w in zip(("u", "lam", "converged", "inner_iterations"),
+                          got, (want.u, want.lam, want.converged,
+                                want.inner_iterations)):
+        if not torch.equal(g, w):
+            fail(f"parallel (a): mesh_dp's world-1 {name} differs from the "
+                 f"unsharded solve's")
+    print(f"parallel (a): mesh_dp world of 1 on NCCL, batch {cell.batch}: "
+          f"u, lam, converged, inner iterations equal to the unsharded "
+          f"solve's bit for bit; converged "
+          f"{float(got[2].float().mean()):.4f}")
+
+    # K1 on mesh_dp's own fans, and its time there
+    by_E = {}
+    for c in calls:
+        by_E.setdefault(c[1][0].shape[0], []).append(c)
+    shapes = (5 * cell.batch, 2 * cell.batch)
+    if sorted(by_E) != sorted(shapes):
+        fail(f"mesh_dp gave K1 the shapes {sorted(by_E)}, not {shapes}")
+    K1 = KERNELS[0]
+    reports = [check(f"K1 mesh_dp E={E} ({n} calls)", psi, grad, u, y0, ct,
+                     pv, fa, model="pacejka")
+               for E, n, psi, grad, u, y0, ct, pv, fa, _ in check_captured(
+                   fp.fan_value_and_grad, calls, lambda a: split(K1, a))]
+    ms_by_E = {}
+    for E in shapes:
+        args = by_E[E][0][1]
+        ms_by_E[E] = launch_ms(lambda: fp.fan_value_and_grad(*args))
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            *(r["max_abs_err_within_bar"] for r in reports))
+    k1["mesh_dp_lanes_checked"] = sum(r["lanes"] for r in reports)
+    k1["mesh_dp_ms_by_E"] = ms_by_E
+    print(f"parallel (a): K1 on mesh_dp's {len(calls)} fan calls, "
+          f"{k1['mesh_dp_lanes_checked']} lanes checked; K1 "
+          + ", ".join(f"{ms:.4f} ms at E={E}" for E, ms in ms_by_E.items())
+          + f" (a CUDA graph of 200 launches); {info['nvidia_smi']}")
+
+    # the three cells through the bench, counts reset just before each
+    runs = {}
+    for c, kw in ((bench.MESH_DP, {}), (bench.MESH_LQT, {"oracle": kkt_oracle}),
+                  (bench.MESH_ILQR, {})):
+        wrappers = _reset_counts(fp)
+        fn = {"mesh_dp": bench.run_mesh_dp, "mesh_lqt": bench.run_mesh_lqt,
+              "mesh_ilqr": bench.run_mesh_ilqr}[c.name]
+        with torch.no_grad():
+            r = fn(c, **kw)
+        r["fan_kernel_launches"] = {w.__name__: w.launches for w in wrappers}
+        runs[c.name] = r
+        print(json.dumps({"bench": dict(r, cell=c.name)}))
+        if not r["states_finite"]:
+            fail(f"{c.name}: non-finite values")
+    r = runs["mesh_dp"]
+    if r["k1_launches"] != r["fan_kernel_launches"]["fan_value_and_grad"] \
+            or r["k1_launches"] < r["inner_iterations_run"] + r["calls"]:
+        fail(f"mesh_dp launched K1 {r['k1_launches']} times for "
+             f"{r['inner_iterations_run']} PANOC iterations in "
+             f"{r['calls']} solves")
+    if not r["converged_fraction"] >= 0.95:
+        fail(f"mesh_dp: converged fraction {r['converged_fraction']}")
+    r = runs["mesh_lqt"]
+    if not r["max_abs_err_vs_float64"] <= LQT_TOL:
+        fail(f"mesh_lqt: {r['max_abs_err_vs_float64']:.3e} from the float64 "
+             f"KKT solution > {LQT_TOL}")
+    r = runs["mesh_ilqr"]
+    if any(r["fan_kernel_launches"].values()):
+        fail(f"mesh_ilqr launched a fan kernel: {r['fan_kernel_launches']}")
+    if not r["converged_fraction"] >= 0.98:
+        fail(f"mesh_ilqr: converged fraction {r['converged_fraction']} < "
+             f"0.98 (ilqr_n40's limit)")
+    print(f"parallel (a): mesh_dp {runs['mesh_dp']['solves_per_s']:.1f} "
+          f"solves/s (p50 {runs['mesh_dp']['p50_s'] * 1e3:.2f} ms, converged"
+          f" {runs['mesh_dp']['converged_fraction']:.4f}, K1 launches "
+          f"{runs['mesh_dp']['k1_launches']}); mesh_lqt p50 "
+          f"{runs['mesh_lqt']['p50_s'] * 1e3:.3f} ms, "
+          f"{runs['mesh_lqt']['max_abs_err_vs_float64']:.2e} from float64, "
+          f"{runs['mesh_lqt']['max_abs_err_vs_parallel']:.2e} from "
+          f"lqt_solve_parallel; mesh_ilqr step p50 "
+          f"{runs['mesh_ilqr']['p50_step_s']:.3f} s, converged "
+          f"{runs['mesh_ilqr']['converged_fraction']:.4f}, first step against"
+          f" ilqr_n40's controller: {runs['mesh_ilqr']['first_step_flags_differ']}"
+          f" flags, {runs['mesh_ilqr']['first_step_outer_differ']} outer "
+          f"counts differ, inner gaps "
+          f"{runs['mesh_ilqr']['first_step_inner_gaps']} lanes at 0, 1, ...; "
+          f"{info['nvidia_smi']}")
+    k1["launches_mesh_dp"] = runs["mesh_dp"]["k1_launches"]
+
+    n_sim = 3
+    ys, traj, conv = make_sharded_closed_loop(
+        mesh, n_sim, alm_cfg=bench.MESH_DP_ALM,
+        panoc_cfg=bench.MESH_DP_PANOC)(y0s, cl, p)
+    if traj.shape != (n_sim, cell.batch, 6) \
+            or not bool(torch.isfinite(traj).all()) \
+            or not torch.equal(ys, traj[-1]):
+        fail("parallel (a): the sharded closed loop's states")
+    print(f"parallel (a): make_sharded_closed_loop, {n_sim} steps at batch "
+          f"{cell.batch}: finite, converged {float(conv.float().mean()):.4f}")
+
+    # the references of (b)
+    nb = PAR_SOLVER["batch"]
+    panoc_b = dataclasses.replace(bench.MESH_DP_PANOC,
+                                  max_iter=PAR_SOLVER["max_iter"])
+    ref_solver = make_sharded_vehicle_solver(
+        mesh, n_horiz=cell.n_horiz, alm_cfg=bench.MESH_DP_ALM,
+        panoc_cfg=panoc_b)(y0s[:nb], cl, p, U0s[:nb], lam0s[:nb])
+    prob = bench.mesh_lqt_problem(bench.MESH_LQT.batch, bench.MESH_LQT.n_horiz)
+    ref_lqt = make_lqt_horizon_sharded(make_horizon_mesh(1, 1))(
+        *(torch.as_tensor(a, device="cuda") for a in prob))
+    ctrl = bench.mesh_ilqr_controller(make_horizon_mesh(1, 1), "cuda")
+    y_il = torch.as_tensor(bench.ss_n40_states(bench.MESH_ILQR.batch),
+                           device="cuda")
+    with torch.no_grad():
+        ref_ilqr = ctrl.step(ctrl.init_carry(y_il.shape[0]), {
+            "y0": y_il, "p": p,
+            "centerline": bench.lane_change_road("cuda")}).result
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    print(f"parallel (a) done in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b), (c) ----
+    il = bench.ILQR_N40
+    spec = {
+        "solver": {"cases": {
+            f"solver_{a}x{b}": dict(
+                mesh=[a, b], n_horiz=cell.n_horiz,
+                alm=dataclasses.asdict(bench.MESH_DP_ALM),
+                panoc={k: v for k, v in dataclasses.asdict(panoc_b).items()
+                       if k != "taus"})
+            for a, b in ((2, 1), (1, 2))}},
+        "lqt": {"cases": {"lqt_1x2": {"mesh": [1, 2], "timed": 10}}},
+        "ilqr": {"cases": {"ilqr_1x2": dict(
+            mesh=[1, 2], n_horiz=il.n_horiz,
+            alm=dataclasses.asdict(il.alm_cfg),
+            ilqr=dataclasses.asdict(il.solver_cfg), n_steps=1)}}}
+    arrays = {}
+    for case in spec["solver"]["cases"]:
+        arrays.update({f"{case}/y0s": y0s[:nb].cpu().numpy(),
+                       f"{case}/cl": cl.cpu().numpy(),
+                       f"{case}/U0s": U0s[:nb].cpu().numpy(),
+                       f"{case}/lam0s": lam0s[:nb].cpu().numpy()})
+    arrays.update({f"lqt_1x2/{k}": a for k, a in zip(LQT_ARGS, prob)})
+    arrays.update({"ilqr_1x2/cl": bench.lane_change_road().numpy(),
+                   "ilqr_1x2/y0s": y_il.cpu().numpy()})
+
+    def two_ranks(tag, backend):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            out = launch("solver,lqt,ilqr", 2, work, spec=spec,
+                         arrays=arrays, device="cuda", backend=backend,
+                         timeout=PAR_TIMEOUT)
+        wall = time.perf_counter() - t0
+        a = lambda t: t.cpu().numpy()              # noqa: E731
+        lines = []
+        for case in spec["solver"]["cases"]:
+            conv = out[f"{case}/converged"]
+            gap = float(np.abs(out[f"{case}/u"] - a(ref_solver[0])).max())
+            if not np.array_equal(conv, a(ref_solver[2])) \
+                    or not gap <= PAR_U_BAND:
+                fail(f"parallel {tag}: {case}: flags equal "
+                     f"{np.array_equal(conv, a(ref_solver[2]))}, inputs "
+                     f"{gap:.3e} from (a)'s (band {PAR_U_BAND})")
+            lines.append(f"{case} converged {conv.mean():.4f}, inputs "
+                         f"{gap:.2e} from (a), {float(out[f'{case}/wall_s']):.2f}"
+                         f" s, K1 launches {int(out[f'{case}/k1_launches'])}, "
+                         f"fan {'graphed' if out[f'{case}/fan_graph'] else 'eager' if case.endswith('1x2') else 'K1'}")
+        gaps = {k: float(np.abs(out[f"lqt_1x2/{k}"]
+                                - a(getattr(ref_lqt, k))).max())
+                for k in ("us", "xs", "Ko", "ko")}
+        if not max(gaps.values()) <= PAR_LQT_TOL:
+            fail(f"parallel {tag}: LQT on (1, 2) against (a): {gaps}")
+        lines.append(f"LQT (1, 2) N={bench.MESH_LQT.n_horiz}: "
+                     f"{max(gaps.values()):.2e} from (a), p50 "
+                     f"{float(out['lqt_1x2/p50_s']) * 1e3:.3f} ms of 10")
+        conv, outer, inner = (out[f"ilqr_1x2/{k}"][0]
+                              for k in ("converged", "outer", "inner"))
+        gap = np.abs(inner.astype(int)
+                     - a(ref_ilqr.inner_iterations).astype(int))
+        over = int((gap > PAR_INNER_BAND
+                    * a(ref_ilqr.outer_iterations)).sum())
+        flags = int((conv != a(ref_ilqr.converged)).sum())
+        outers = int((outer != a(ref_ilqr.outer_iterations)).sum())
+        lines.append(f"mesh_ilqr step (1, 2): converged {conv.mean():.4f}, "
+                     f"{flags} flags and {outers} outer counts differ from "
+                     f"(a)'s, inner gaps {np.bincount(gap).tolist()} lanes "
+                     f"at 0, 1, ..., {float(out['ilqr_1x2/wall_s'][0]):.2f} s")
+        print(f"parallel {tag}: 2 ranks on {backend}, one launch in "
+              f"{wall:.1f} s: " + "; ".join(lines)
+              + f"; {info['nvidia_smi']}")
+        if flags or outers or over:
+            fail(f"parallel {tag}: mesh_ilqr step on (1, 2) against (a): "
+                 f"{flags} flags, {outers} outer counts differ, {over} inner "
+                 f"counts beyond {PAR_INNER_BAND} per outer iteration")
+
+    print("parallel (b): gloo takes CUDA tensors and stages each collective "
+          "through host memory itself; NCCL cannot put two ranks on one GPU, "
+          "so the 2-rank runs share the one card over gloo (not NVLink); the "
+          "(1, 2) solver's fan communicates, so it runs eager (decided "
+          "when the solver is built: make_panoc_solver(group=))")
+    two_ranks("(b)", "gloo")
+    if torch.cuda.device_count() > 1:
+        two_ranks("(c)", "nccl")
+    else:
+        print(f"parallel (c): not run: {torch.cuda.device_count()} CUDA "
+              f"device (NCCL needs a card per rank)")
+    print(f"parallel phase done in {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 # ---- the LQT solves (mpc_tpu_torch/solver/lqr.py) --------------------------
 
 LQT_TOL = 2e-4          # us, xs against the float64 KKT solution
@@ -961,6 +1264,7 @@ class Kernel(NamedTuple):
     n_plain: int         # timed runs of the plain version
     min_conv: float      # the path's least mean converged fraction
     count: str = "launches"   # the wrapper's count of this kernel's launches
+    paths: tuple = ()    # the paths (bench cells) that launch it
 
 
 KERNELS = (
@@ -971,7 +1275,8 @@ KERNELS = (
                  for road in ("straight", "circle"))
            + ((37, "circle", dict(mass=0.25, cm1=0.4), None),),
            0, (Capture("HEADLINE", 3, (5120, 2048)),
-               Capture("CONFIG5", 3, (5, 2), batch1=True)), None, 50, 0.99),
+               Capture("CONFIG5", 3, (5, 2), batch1=True)), None, 50, 0.99,
+           paths=("headline", "config5 batch-1 loop", "etc", "mesh_dp")),
     Kernel("K2", "fused_psi_fan_kin", "K2, model=simplified",
            "kin_fan_value_and_grad", "simplified", False, "CONFIG1", 20, 4,
            tuple((E, road, {}, None) for E in (1, 37, 5120)
@@ -1215,6 +1520,9 @@ def main():
     fan_graph_phase(bench, info)
     window_phase(bench, fp, info)
     ilqr_obstacle_phase(fp, info)
+
+    # ---- 8. the sharded paths ---------------------------------------------
+    parallel_phase(bench, fp, info, measured[0])
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -1236,7 +1544,9 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "single_lane_ms": m["single_lane_ms"],
-            "serial_chain_ms": m["serial_chain_ms"]})
+            "serial_chain_ms": m["serial_chain_ms"], "paths": list(k.paths),
+            **{key: m[key] for key in ("launches_mesh_dp", "mesh_dp_ms_by_E",
+                                       "mesh_dp_lanes_checked") if key in m}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

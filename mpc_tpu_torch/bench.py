@@ -67,10 +67,35 @@ NVIDIA GPU, one closed loop per cell.
   ``PanocConfig(lbfgs_memory=12, max_iter=250)``, batch 1, a closed loop
   of ``CHAIN_STEPS`` steps (the source runs 180). No kernel.
 
+The sharded cells (``parallel/``) run over the ranks of the world they
+are started in: under ``torchrun``, one rank per card on NCCL; started
+alone, a world of one rank on this process's card, whose collectives are
+copies. Rank 0 prints.
+
+- ``mesh_dp``: the scenario-sharded vehicle solver
+  (examples/exp_mesh_scaling.py:46-75): ``make_mesh(world, 1)``, the
+  headline's OCP at N=12 on the 100-point straight road,
+  ``AlmConfig(eps=1e-4)``, ``PanocConfig(lbfgs_memory=12, max_iter=60)``,
+  batch 256, cold U0 = [1, 0] and zero multipliers, y0[:, 1] ~ U(-0.1, 0.1),
+  y0[:, 3] ~ U(0.3, 1.0) from ``default_rng(0)``; one warm-up call, then
+  the median of 5 timed calls; solves/s = batch / p50. Its fan is K1.
+- ``mesh_lqt``: the horizon-sharded LQT (examples/exp_mesh_lqt.py:40-75):
+  ``make_horizon_mesh(1, world)``, N=512, batch 4, n=6, m=2, from
+  ``default_rng(0)``; one warm-up, then the median of 10; its error against
+  ``lqt_solve_parallel`` (and, from chip_smoke.py, the float64 KKT
+  solution). No kernel.
+- ``mesh_ilqr``: one AL-iLQR MPC step per lane through
+  ``build_vehicle_ilqr_controller(mesh=make_horizon_mesh(1, world))``
+  (``__graft_entry__.py:107-131``) at ilqr_n40's width (its OCP, road,
+  configurations and 256 initial states): 1 warm-up and 3 timed
+  closed-loop steps; its first step against ilqr_n40's own controller on
+  the same lanes. No kernel.
+
 ``solves/s`` is all the timed solves over all the timed wall time; the root
 ``bench.py`` divides the batch by the p50 step.
 
-    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain]
+    python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain|mesh_dp|mesh_lqt|mesh_ilqr]
+    torchrun --nproc_per_node=<gpus> -m mpc_tpu_torch.bench mesh_dp
 
 Prints a detail JSON line (with the card's name and power limit) and, last,
 the result JSON line. Without a CUDA device it exits with an error: a
@@ -105,7 +130,12 @@ from mpc_tpu_torch.ops import fused_psi as fp
 from mpc_tpu_torch.ops.bezier import (bezier_centerline,
                                       lane_change_control_points)
 from mpc_tpu_torch.ops.road import straight_centerline
+from mpc_tpu_torch.parallel.distributed import initialize_world
+from mpc_tpu_torch.parallel.lqr_sharded import make_lqt_horizon_sharded
+from mpc_tpu_torch.parallel.mesh import make_horizon_mesh, make_mesh
+from mpc_tpu_torch.parallel.sharding import make_sharded_vehicle_solver
 from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
+from mpc_tpu_torch.solver.lqr import lqt_solve_parallel
 from mpc_tpu_torch.sim.two_car import make_two_car_game
 
 REALTIME_BUDGET_S = 0.05   # Ts, the control interval
@@ -312,9 +342,31 @@ CHAIN_STEPS = 60
 CHAIN = ChainCell("chain", 6, 2, N_HORIZ, None,
                   PanocConfig(lbfgs_memory=N_HORIZ, max_iter=250),
                   (-0.5, 0.5), 3, 1, CHAIN_STEPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshCell:
+    """A cell of the sharded paths (``parallel/``), run over the ranks of
+    the world it is started in: ``mesh_dp`` the scenario-sharded vehicle
+    solver, ``mesh_lqt`` the horizon-sharded LQT, ``mesh_ilqr`` the
+    horizon-sharded AL-iLQR controller. ``n_warmup`` untimed and
+    ``n_steps`` timed calls (or closed-loop steps)."""
+    name: str
+    batch: int
+    n_horiz: int
+    n_warmup: int
+    n_steps: int
+
+
+MESH_DP = MeshCell("mesh_dp", 256, N_HORIZ, 1, 5)
+MESH_LQT = MeshCell("mesh_lqt", 4, 512, 1, 10)
+MESH_ILQR = MeshCell("mesh_ilqr", 256, 40, 1, 3)
+#: mesh_dp's solver settings (examples/exp_mesh_scaling.py:46-50)
+MESH_DP_ALM = AlmConfig(eps=1e-4)
+MESH_DP_PANOC = PanocConfig(lbfgs_memory=N_HORIZ, max_iter=60)
 CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40, ILQR_N40, ETC,
                              CONFIG5, CONFIG4, MS_N40_M8, CONFIG5_OBS,
-                             CHAIN)}
+                             CHAIN, MESH_DP, MESH_LQT, MESH_ILQR)}
 
 
 class ClosedLoop:
@@ -705,6 +757,195 @@ def run_chain(cell: ChainCell = CHAIN) -> dict:
     }
 
 
+def mesh_dp_inputs(batch: int, n_horiz: int = N_HORIZ, device=None):
+    """mesh_dp's lanes (examples/exp_mesh_scaling.py:52-60): ``(y0s, cl,
+    U0s, lam0s)``, y0[:, 1] ~ U(-0.1, 0.1) and y0[:, 3] ~ U(0.3, 1.0) from
+    ``default_rng(0)``, the 100-point straight road, cold ``U0 = [1, 0] *
+    N`` and zero multipliers."""
+    rng = np.random.default_rng(SEED)
+    y0s = np.zeros((batch, 6), np.float32)
+    y0s[:, 1] = rng.uniform(-0.1, 0.1, batch)
+    y0s[:, 3] = rng.uniform(0.3, 1.0, batch)
+    U0s = torch.tensor([1.0, 0.0], device=device).repeat(n_horiz) \
+        .expand(batch, -1).clone()
+    return (torch.as_tensor(y0s, device=device), _straight(device), U0s,
+            torch.zeros((batch, 6 * n_horiz), device=device))
+
+
+def mesh_lqt_problem(batch: int, N: int, n: int = 6, m: int = 2,
+                     seed: int = SEED) -> tuple:
+    """mesh_lqt's problem (examples/exp_mesh_lqt.py:40-56's generator, from
+    ``default_rng(seed)``), float32 numpy ``(x0, A, B, c, Q, q, R, r, QN,
+    qN)`` with the terminal terms repeated per lane, as the port's LQT
+    takes them."""
+    rng = np.random.default_rng(seed)
+
+    def psd(head, d, scale):
+        M = rng.normal(0, scale, (*head, d, d)).astype(np.float32)
+        return M @ np.swapaxes(M, -1, -2) + 0.5 * np.eye(d, dtype=np.float32)
+
+    A = (np.eye(n, dtype=np.float32)
+         + 0.1 * rng.normal(0, 1, (batch, N, n, n)).astype(np.float32) / n)
+    B = rng.normal(0, 0.4, (batch, N, n, m)).astype(np.float32)
+    c = rng.normal(0, 0.05, (batch, N, n)).astype(np.float32)
+    Q = psd((batch, N), n, 0.3)
+    q = rng.normal(0, 0.2, (batch, N, n)).astype(np.float32)
+    R = psd((batch, N), m, 0.3) + np.eye(m, dtype=np.float32)
+    r = rng.normal(0, 0.2, (batch, N, m)).astype(np.float32)
+    QN = psd((), n, 0.3)
+    qN = rng.normal(0, 0.2, n).astype(np.float32)
+    x0 = rng.normal(0, 0.3, (batch, n)).astype(np.float32)
+    return (x0, A, B, c, Q, q, R, r,
+            np.broadcast_to(QN, (batch, n, n)).copy(),
+            np.broadcast_to(qN, (batch, n)).copy())
+
+
+def _timed(fn, n_warmup: int, n_timed: int):
+    """``(last output, host-clock seconds of each timed call)``, each call
+    ended by a sync."""
+    for _ in range(n_warmup):
+        out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def _world() -> dict:
+    import torch.distributed as dist
+    initialize_world()
+    return {"world": dist.get_world_size(),
+            "backend": dist.get_backend()}
+
+
+def run_mesh_dp(cell: MeshCell = MESH_DP) -> dict:
+    """The scenario-sharded solve (examples/exp_mesh_scaling.py:46-75):
+    ``make_mesh(world, 1)``, one warm-up call, then the median of the timed
+    calls; solves/s is the batch over that median. The fan is K1."""
+    w = _world()
+    dev = _cuda()
+    mesh = make_mesh(w["world"], 1)
+    solve = make_sharded_vehicle_solver(
+        mesh, n_horiz=cell.n_horiz, alm_cfg=MESH_DP_ALM,
+        panoc_cfg=MESH_DP_PANOC, device=dev)
+    args = mesh_dp_inputs(cell.batch, cell.n_horiz, dev)
+    iters_run = []
+
+    def call():
+        out = solve(args[0], args[1], VehicleParams(), args[2], args[3])
+        iters_run.append(out[3].max())
+        return out
+
+    fp.fan_value_and_grad.launches = 0
+    (u, lam, conv, iters), times = _timed(call, cell.n_warmup, cell.n_steps)
+    p50 = float(np.median(times))
+    return {**w, "mesh": [w["world"], 1], "batch": cell.batch,
+            "n_horiz": cell.n_horiz, "solves_per_s": cell.batch / p50,
+            "p50_s": p50, "times_s": times,
+            "converged_fraction": float(conv.float().mean()),
+            "inner_iters_mean": float(iters.float().mean()),
+            "inner_iters_max": int(iters.max()),
+            "k1_launches": fp.fan_value_and_grad.launches,
+            "inner_iterations_run": int(torch.stack(iters_run).sum()),
+            "calls": cell.n_warmup + cell.n_steps,
+            "states_finite": bool(torch.isfinite(u).all())}
+
+
+def run_mesh_lqt(cell: MeshCell = MESH_LQT,
+                 oracle: Optional[Callable] = None) -> dict:
+    """The horizon-sharded LQT (examples/exp_mesh_lqt.py:58-75):
+    ``make_horizon_mesh(1, world)``, one warm-up call, then the median of
+    the timed calls; its error against ``lqt_solve_parallel`` on the same
+    problem and, given ``oracle(x0, A, B, c, Q, q, R, r, QN, qN, P) ->
+    (xs, us)`` (a float64 solution of one lane), against it."""
+    w = _world()
+    mesh = make_horizon_mesh(1, w["world"])
+    solve = make_lqt_horizon_sharded(mesh)
+    prob = mesh_lqt_problem(cell.batch, cell.n_horiz)
+    args = [torch.as_tensor(a, device=_cuda()) for a in prob]
+    sol, times = _timed(lambda: solve(*args), cell.n_warmup, cell.n_steps)
+    ref = lqt_solve_parallel(*args)
+    r = {**w, "mesh": [1, w["world"]], "batch": cell.batch,
+         "n_horiz": cell.n_horiz, "p50_s": float(np.median(times)),
+         "times_s": times,
+         "max_abs_err_vs_parallel": max(
+             float((sol.us - ref.us).abs().max()),
+             float((sol.xs - ref.xs).abs().max())),
+         "states_finite": bool(torch.isfinite(sol.xs).all())}
+    if oracle is not None:
+        err = 0.0
+        n, m = prob[2].shape[2:]
+        P = np.zeros((cell.n_horiz, m, n))             # no cross term
+        for i in range(cell.batch):
+            xs, us = oracle(*(a[i].astype(np.float64) for a in prob), P)
+            err = max(err,
+                      float(np.abs(sol.us[i].cpu().numpy() - us).max()),
+                      float(np.abs(sol.xs[i].cpu().numpy() - xs).max()))
+        r["max_abs_err_vs_float64"] = err
+    return r
+
+
+def mesh_ilqr_controller(mesh, device=None):
+    """``build_vehicle_ilqr_controller`` on ilqr_n40's OCP and settings,
+    over ``mesh`` (None: ilqr_n40's own controller)."""
+    return build_vehicle_ilqr_controller(
+        n_horiz=ILQR_N40.n_horiz, bound_state_constraints=True,
+        alm_cfg=ILQR_N40.alm_cfg, ilqr_cfg=ILQR_N40.solver_cfg, mesh=mesh,
+        device=device)
+
+
+def run_mesh_ilqr(cell: MeshCell = MESH_ILQR) -> dict:
+    """The horizon-sharded AL-iLQR step (``__graft_entry__.py:107-131``'s
+    ``dryrun_multichip`` step) at ilqr_n40's width: ilqr_n40's OCP, road,
+    configurations and first ``batch`` initial states through
+    ``build_vehicle_ilqr_controller(mesh=make_horizon_mesh(1, world))``, a
+    closed loop of ``n_warmup`` untimed and ``n_steps`` timed steps. Its
+    first step is held against ilqr_n40's own (unsharded, sequential
+    Riccati) controller on the same lanes."""
+    w = _world()
+    loop = ClosedLoop(ILQR_N40)
+    ys, carry = loop.start(cell.batch)
+    _, _, ref = loop.step(ys, carry)          # ilqr_n40's own first step
+    loop.ctrl = mesh_ilqr_controller(make_horizon_mesh(1, w["world"]),
+                                     loop.device)
+    outs, times = [], []
+    for k in range(cell.n_warmup + cell.n_steps):
+        t0 = time.perf_counter()
+        ys, carry, out = loop.step(ys, carry)
+        torch.cuda.synchronize()
+        if k >= cell.n_warmup:
+            times.append(time.perf_counter() - t0)
+        outs.append(out.result)
+    first = outs[0]
+    timed = outs[cell.n_warmup:]
+    inner = torch.stack([o.inner_iterations for o in timed]).float()
+    outer = torch.stack([o.outer_iterations for o in timed]).float()
+    gap = (first.inner_iterations - ref.result.inner_iterations).abs()
+    return {**w, "mesh": [1, w["world"]], "batch": cell.batch,
+            "n_horiz": cell.n_horiz, "p50_step_s": float(np.median(times)),
+            "times_s": times,
+            "converged_fraction": float(torch.stack(
+                [o.converged.float().mean() for o in timed]).mean()),
+            "inner_iters_mean": float(inner.mean()),
+            "inner_iters_max": int(inner.max()),
+            "outer_iters_mean": float(outer.mean()),
+            "outer_iters_max": int(outer.max()),
+            "first_step_converged": float(first.converged.float().mean()),
+            "first_step_flags_differ": int(
+                (first.converged != ref.result.converged).sum()),
+            "first_step_outer_differ": int(
+                (first.outer_iterations != ref.result.outer_iterations)
+                .sum()),
+            "first_step_inner_gap_max": int(gap.max()),
+            # lanes whose inner count differs by 0, 1, 2, ...
+            "first_step_inner_gaps": torch.bincount(gap).tolist(),
+            "states_finite": bool(torch.isfinite(ys).all())}
+
+
 @torch.no_grad()
 def run(cell: Cell = HEADLINE) -> dict:
     """Run the cell's closed loop at its batch (and its batch-1 loop, where
@@ -715,6 +956,9 @@ def run(cell: Cell = HEADLINE) -> dict:
         return run_two_car(cell)
     if isinstance(cell, ChainCell):
         return run_chain(cell)
+    if isinstance(cell, MeshCell):
+        return {"mesh_dp": run_mesh_dp, "mesh_lqt": run_mesh_lqt,
+                "mesh_ilqr": run_mesh_ilqr}[cell.name](cell)
     loop = ClosedLoop(cell)
     sync = torch.cuda.synchronize
     iters_run = []          # per step: the slowest lane's inner iterations
@@ -778,14 +1022,23 @@ def main(argv=None):
         raise SystemExit(f"usage: python -m mpc_tpu_torch.bench "
                          f"[{'|'.join(CELLS)}]")
     r = run(CELLS[name])
+    if isinstance(CELLS[name], MeshCell):
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank:
+            return
     info = gpu_info()
     r["device"] = torch.cuda.get_device_name(0)
     r["power_limit"] = info["power_limit"]
     print(json.dumps({"detail": r}))
-    metric = "mpc_solves_per_s" if name == "headline" \
-        else f"mpc_solves_per_s_{name}"
-    print(json.dumps({"metric": metric, "value": r["solves_per_s"],
-                      "unit": "solves/s", "device": r["device"],
+    metric, key, unit = {
+        "headline": ("mpc_solves_per_s", "solves_per_s", "solves/s"),
+        "mesh_lqt": ("lqt_p50_s_mesh_lqt", "p50_s", "s"),
+        "mesh_ilqr": ("step_p50_s_mesh_ilqr", "p50_step_s", "s"),
+    }.get(name, (f"mpc_solves_per_s_{name}", "solves_per_s", "solves/s"))
+    print(json.dumps({"metric": metric, "value": r[key], "unit": unit,
+                      "device": r["device"],
                       "power_limit": info["power_limit"]}))
 
 

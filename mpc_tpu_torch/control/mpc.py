@@ -363,13 +363,16 @@ def build_vehicle_ilqr_controller(n_horiz: int = 40, v_ref: float = 1.0,
     pass then takes the full second-order path (mpc_tpu/control/mpc.py:
     370-377), and the obstacles, like the road, are shared by the lanes
     ((K, 4)). It runs no fan kernel: the AL-iLQR path is batched torch ops
-    throughout. ``device=None`` is the card (:func:`resolve_device`). The
-    horizon-sharded ``mesh=`` path is not ported yet and raises.
+    throughout. ``device=None`` is the card (:func:`resolve_device`).
+
+    ``mesh``: a (scenario, horizon) mesh
+    (``parallel/mesh.py:make_horizon_mesh``). With one, the controller is
+    the batch-native ``BatchedMpcController`` of
+    ``parallel/ilqr_sharded.py`` (mpc_tpu/control/mpc.py:410-420): the
+    lanes over the scenario axis, every Riccati backward pass over the
+    horizon axis; its carry and parameters hold the global batch on every
+    rank.
     """
-    if mesh is not None:
-        raise NotImplementedError("mpc_tpu_torch: the horizon-sharded "
-                                  "AL-iLQR (parallel/ilqr_sharded.py) is not "
-                                  "ported yet")
     state_dim, dynamics = _vehicle_model(model)
     device = resolve_device(device)
     if params is None:
@@ -400,11 +403,23 @@ def build_vehicle_ilqr_controller(n_horiz: int = 40, v_ref: float = 1.0,
         D=D)
     problem = dataclasses.replace(problem,
                                   uses_obstacles=obstacle_weight > 0.0)
-    solve = make_al_ilqr_solver(
-        f_d, stage_cost, n_horiz, state_dim, 2, u_box=C,
-        stage_constraints=stage_constraints, n_stage_constraints=n_stage,
-        D=D, alm_cfg=alm_cfg or AlmConfig(),
-        ilqr_cfg=ilqr_cfg or IlqrConfig(), stage_residuals=stage_residuals)
+    kw = dict(stage_constraints=stage_constraints,
+              n_stage_constraints=n_stage, D=D,
+              alm_cfg=alm_cfg or AlmConfig(),
+              ilqr_cfg=ilqr_cfg or IlqrConfig(),
+              stage_residuals=stage_residuals)
+    if mesh is not None:
+        from mpc_tpu_torch.parallel.ilqr_sharded import (
+            BatchedMpcController, make_al_ilqr_solver_batched)
+        solve = make_al_ilqr_solver_batched(f_d, stage_cost, n_horiz,
+                                            state_dim, 2, u_box=C, mesh=mesh,
+                                            **kw)
+        return BatchedMpcController(problem=problem, solve=solve,
+                                    n_horiz=n_horiz, input_dim=2,
+                                    warm_start_input=(1.0, 0.0),
+                                    device=device)
+    solve = make_al_ilqr_solver(f_d, stage_cost, n_horiz, state_dim, 2,
+                                u_box=C, **kw)
     return MpcController(problem=problem, solve=solve, n_horiz=n_horiz,
                          input_dim=2, warm_start_input=(1.0, 0.0),
                          device=device)

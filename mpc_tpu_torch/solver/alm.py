@@ -31,7 +31,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from mpc_tpu_torch.config import AlmConfig, PanocConfig
-from mpc_tpu_torch.solver.panoc import PanocTrace, _where, make_panoc_solver
+from mpc_tpu_torch.solver.panoc import (PanocTrace, _where, any_lane,
+                                        make_panoc_solver)
 from mpc_tpu_torch.solver.problem import Problem, project, value_and_grad
 
 
@@ -78,23 +79,27 @@ class _OuterState(NamedTuple):
 
 
 def make_alm_solver(problem: Problem, alm_cfg: AlmConfig = AlmConfig(),
-                    panoc_cfg: PanocConfig = PanocConfig()) -> Callable:
+                    panoc_cfg: PanocConfig = PanocConfig(),
+                    group=None) -> Callable:
     """Build ``solve(param, u0 (B, n), lam0 (B, m), tol=None, sigma0=None,
-    gamma0=None) -> AlmResult`` over a batch of lanes."""
+    gamma0=None) -> AlmResult`` over a batch of lanes. ``group`` is
+    :func:`make_panoc_solver`'s (a sharded solve's model axis); the outer
+    loop's all-lanes-done test is reduced over it too. ``solve.fan_graph``
+    is PANOC's."""
     has_general = problem.constraints is not None and problem.m > 0 \
         and problem.D.is_bounded
     if not has_general:
-        return _make_fast_path(problem, alm_cfg, panoc_cfg)
-    return _make_general_path(problem, alm_cfg, panoc_cfg)
+        return _make_fast_path(problem, alm_cfg, panoc_cfg, group)
+    return _make_general_path(problem, alm_cfg, panoc_cfg, group)
 
 
-def _make_fast_path(problem, alm_cfg, panoc_cfg):
+def _make_fast_path(problem, alm_cfg, panoc_cfg, group):
     """No bounded general constraint: one full-tolerance PANOC solve."""
     def psi_vg(u, args):
         return value_and_grad(problem.cost, u, args)
 
     panoc = make_panoc_solver(psi_vg, problem.C, panoc_cfg,
-                              psi_vg_multi=problem.cost_multi)
+                              psi_vg_multi=problem.cost_multi, group=group)
 
     def solve(param, u0, lam0, tol=None, sigma0=None, gamma0=None):
         # ``tol`` overrides the configured tolerance per call; +inf makes a
@@ -117,10 +122,11 @@ def _make_fast_path(problem, alm_cfg, panoc_cfg):
             inner_convergence_failures=(~res.converged).to(torch.int32),
             sigma=sigma, gamma=res.gamma, inner_trace=res.trace)
 
+    solve.fan_graph = panoc.fan_graph
     return solve
 
 
-def _make_general_path(problem, alm_cfg, panoc_cfg):
+def _make_general_path(problem, alm_cfg, panoc_cfg, group):
     """The outer multiplier/penalty loop (mpc_tpu/solver/alm.py:135-311)."""
     m, D = problem.m, problem.D
 
@@ -154,7 +160,7 @@ def _make_general_path(problem, alm_cfg, panoc_cfg):
             return problem.al_multi(cands, *args)
 
     panoc = make_panoc_solver(psi_vg, problem.C, panoc_cfg,
-                              psi_vg_multi=psi_vg_multi)
+                              psi_vg_multi=psi_vg_multi, group=group)
     sigma_0 = torch.as_tensor(alm_cfg.sigma_0, dtype=torch.float32)
     if sigma_0.dim() > 1 or sigma_0.numel() not in (1, m):
         raise ValueError(f"AlmConfig.sigma_0 must be a scalar or have {m} "
@@ -214,7 +220,7 @@ def _make_general_path(problem, alm_cfg, panoc_cfg):
         def cond(st):
             return (~st.converged) & (st.outer < alm_cfg.max_iter)
 
-        while bool((active := cond(st)).any()):
+        while any_lane(active := cond(st), group):
             # lanes that are done converge at once; their result is dropped
             tol_k = torch.where(active, st.eps_k,
                                 torch.full_like(st.eps_k, float("inf")))
@@ -275,4 +281,5 @@ def _make_general_path(problem, alm_cfg, panoc_cfg):
             gamma=torch.where(skip, gamma_in, st.gamma),
             trace=st.trace, inner_trace=st.inner_trace)
 
+    solve.fan_graph = panoc.fan_graph
     return solve

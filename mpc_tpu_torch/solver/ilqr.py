@@ -35,7 +35,7 @@ from mpc_tpu_torch.config import AlmConfig, IlqrConfig
 from mpc_tpu_torch.solver.alm import AlmResult
 from mpc_tpu_torch.solver.lqr import (lqt_solve_parallel,
                                       lqt_solve_sequential)
-from mpc_tpu_torch.solver.panoc import _where
+from mpc_tpu_torch.solver.panoc import _where, any_lane
 from mpc_tpu_torch.solver.problem import Box, project
 
 def _assert_stage_uniform(v, n_horiz: int, width: int, name: str) -> None:
@@ -107,7 +107,9 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
                      state_dim: int, input_dim: int,
                      u_box: Optional[Box] = None,
                      cfg: IlqrConfig = IlqrConfig(),
-                     stage_residuals: Optional[Callable] = None) -> Callable:
+                     stage_residuals: Optional[Callable] = None,
+                     lqt: Optional[Callable] = None,
+                     group=None) -> Callable:
     """Build ``solve(us0 (B, N*m), param, al_args=None, skip=None) ->
     IlqrResult`` (mpc_tpu/solver/ilqr.py:145-358).
 
@@ -125,9 +127,16 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
     masked iteration, the per-lane loop condition and the state's
     ``IlqrResult``; ``solve`` is the loop ``while cond(state).any(): state =
     iterate(state)``.
+
+    The horizon-sharded solver (``parallel/ilqr_sharded.py``) passes its
+    backward pass as ``lqt``, the LQT solve of :mod:`solver.lqr`'s
+    interface that replaces the one ``cfg.parallel_backward`` chooses, and
+    ``group``, the ranks that hold the same lanes, over which the
+    all-lanes-done test is reduced (``solver/panoc.py:any_lane``).
     """
-    lqt = lqt_solve_parallel if cfg.parallel_backward else \
-        lqt_solve_sequential
+    if lqt is None:
+        lqt = lqt_solve_parallel if cfg.parallel_backward else \
+            lqt_solve_sequential
     if u_box is not None:
         _assert_stage_uniform(u_box.lower, n_horiz, input_dim, "u_box.lower")
         _assert_stage_uniform(u_box.upper, n_horiz, input_dim, "u_box.upper")
@@ -355,7 +364,7 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
         # one all-lanes-done check per iteration: an iteration issues tens of
         # thousands of kernels, so the check costs nothing beside it, while
         # an extra masked iteration would cost a whole one
-        while bool(cond(st).any()):
+        while any_lane(cond(st), group):
             st = iterate(st)
         return result(st)
 
@@ -396,8 +405,9 @@ def make_al_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
                         D: Optional[Box] = None,
                         alm_cfg: Optional[AlmConfig] = None,
                         ilqr_cfg: IlqrConfig = IlqrConfig(),
-                        stage_residuals: Optional[Callable] = None
-                        ) -> Callable:
+                        stage_residuals: Optional[Callable] = None,
+                        lqt: Optional[Callable] = None,
+                        group=None) -> Callable:
     """Build ``solve(param, u0 (B, N*m), lam0 (B, M), tol=None, sigma0=None,
     gamma0=None) -> AlmResult`` (mpc_tpu/solver/ilqr.py:365-550), a
     drop-in for solver/alm.py's solver that ``MpcController`` drives
@@ -406,7 +416,9 @@ def make_al_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
 
     ``solve.prepare_inner(param, u0, lam, sigma)`` is the inner solver's
     ``prepare`` with the stage AL terms folded in (see
-    :func:`make_ilqr_solver`).
+    :func:`make_ilqr_solver`). ``lqt`` and ``group`` are
+    :func:`make_ilqr_solver`'s; the outer loop's test is reduced over
+    ``group`` too.
     """
     if alm_cfg is None:
         alm_cfg = AlmConfig()
@@ -417,7 +429,8 @@ def make_al_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
     if not has_general:
         inner = make_ilqr_solver(f_d, stage_cost, n_horiz, state_dim,
                                  input_dim, u_box=u_box, cfg=ilqr_cfg,
-                                 stage_residuals=stage_residuals)
+                                 stage_residuals=stage_residuals, lqt=lqt,
+                                 group=group)
 
         def solve(param, u0, lam0, tol=None, sigma0=None, gamma0=None):
             dtype, device = u0.dtype, u0.device
@@ -464,7 +477,8 @@ def make_al_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
 
     inner = make_ilqr_solver(f_d, stage_cost, n_horiz, state_dim, input_dim,
                              u_box=u_box, cfg=ilqr_cfg,
-                             stage_residuals=stage_residuals)
+                             stage_residuals=stage_residuals, lqt=lqt,
+                             group=group)
 
     def constraints_from_traj(xs, us_flat, param):
         """g on the inner solve's accepted trajectory; stage k's constraint
@@ -508,7 +522,7 @@ def make_al_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
         def cond(st):
             return (~st.converged) & (st.outer < alm_cfg.max_iter)
 
-        while bool((active := cond(st)).any()):
+        while any_lane(active := cond(st), group):
             # lanes already done skip the inner solve; its result for them
             # is dropped by the select below
             res = inner(st.u, param,

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from mpc_tpu_torch.config import PanocConfig
 from mpc_tpu_torch.solver.problem import Box, fold_lanes, project
@@ -39,6 +40,20 @@ def _where(mask: torch.Tensor, a, b):
     if isinstance(a, tuple):
         return type(a)(*(_where(mask, x, y) for x, y in zip(a, b)))
     return torch.where(_bcast(mask, a), a, b)
+
+
+def any_lane(flags: torch.Tensor, group=None) -> bool:
+    """Whether any lane's flag holds (a host sync). With ``group``, the
+    process group of the ranks that hold the same lanes (a sharded solve's
+    model or horizon axis), whether it holds on any of them: one scalar
+    ``all_reduce(MAX)``, so that the ranks run the same number of trips
+    through a masked loop whose body communicates over the group, and no
+    collective pairs up with another rank's different one."""
+    if group is None:
+        return bool(flags.any())
+    flag = flags.any().to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -249,8 +264,8 @@ class _FanGraph:
 
 def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
                       psi_vg_multi: Optional[Callable] = None,
-                      progress_callback: Optional[Callable] = None
-                      ) -> Callable:
+                      progress_callback: Optional[Callable] = None,
+                      group=None) -> Callable:
     """Build ``solve(u0 (B, n), tol, args, gamma_init=None) -> PanocResult``.
 
     ``psi_vg(u (B, n), args) -> (psi (B,), grad (B, n))`` is the value and
@@ -263,11 +278,20 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
     card. ``progress_callback(iters, psi,
     criterion, gamma)`` is called on the host after every masked iteration
     with (B,) tensors.
+
+    ``group``: the process group of the ranks that hold the same lanes and
+    whose cost communicates over it (the model axis of
+    ``parallel/sharding.py``); the all-lanes-done test is then reduced over
+    it (:func:`any_lane`). A fan that communicates runs eager: gloo's
+    collectives cannot be captured into a CUDA graph, and NCCL's capture
+    has not been run on several cards. ``solve.fan_graph`` says whether the
+    plain fan is captured (False also where the fan is ``psi_vg_multi``).
     """
+    fan_graph = psi_vg_multi is None and group is None
     if psi_vg_multi is not None:
         cand_vg = psi_vg_multi
     else:
-        graphs = {}
+        graphs = {} if fan_graph else None
 
         def cand_vg(cands, args):
             return candidate_fan(psi_vg, cands, args, graphs)
@@ -403,7 +427,7 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
                                   criterion=crit, trace=tr)
             return _where(conv_now, st_done, st_new)
 
-        while bool(cond(st).any()):
+        while any_lane(cond(st), group):
             for _ in range(_CHUNK):
                 active = cond(st)
                 st = _where(active, body(st), st)
@@ -422,4 +446,5 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
             iterations=st.iters, criterion=crit, gamma=st.gamma,
             trace=st.trace)
 
+    solve.fan_graph = fan_graph
     return solve

@@ -717,3 +717,83 @@ def test_suite_with_obstacles_on_card(cuda):
         straggler_pad=4)
     assert fp.fan_value_and_grad.launches == before
     assert bool(torch.isfinite(state["ys"]).all()) and conv.shape == (8, 2)
+
+
+@pytest.fixture
+def world1(cuda):
+    """A world of one rank on NCCL in this process (the sharded paths'
+    collectives are then copies), torn down after the test."""
+    import torch.distributed as dist
+    from mpc_tpu_torch.parallel.distributed import initialize_world
+    initialize_world()
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_world_of_one_sharded_solve_equals_unsharded(world1):
+    """The (1, 1)-mesh solver runs K1 on the same lanes as the unsharded
+    solver: its outputs are the same bit for bit."""
+    from mpc_tpu_torch.bench import mesh_dp_inputs
+    from mpc_tpu_torch.control.mpc import build_vehicle_ocp
+    from mpc_tpu_torch.parallel.mesh import make_mesh
+    from mpc_tpu_torch.parallel.sharding import make_sharded_vehicle_solver
+    from mpc_tpu_torch.solver.alm import make_alm_solver
+    alm, panoc = AlmConfig(eps=1e-4), PanocConfig(lbfgs_memory=12,
+                                                  max_iter=60)
+    y0s, cl, U0s, lam0s = mesh_dp_inputs(32, 12, world1)
+    p = VehicleParams()
+    fp.fan_value_and_grad.launches = 0
+    got = make_sharded_vehicle_solver(make_mesh(1, 1), alm_cfg=alm,
+                                      panoc_cfg=panoc)(y0s, cl, p, U0s, lam0s)
+    assert fp.fan_value_and_grad.launches > 0
+    want = make_alm_solver(build_vehicle_ocp(12, device=world1), alm, panoc)(
+        {"y0": y0s, "p": p, "centerline": cl}, U0s, lam0s)
+    for g, w in zip(got, (want.u, want.lam, want.converged,
+                          want.inner_iterations)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_world_of_one_lqt_equals_parallel_scan(world1):
+    """A blocked scan over one rank folds in identity elements, which is
+    exact: the (1, 1)-mesh LQT equals lqt_solve_parallel."""
+    from mpc_tpu_torch.bench import mesh_lqt_problem
+    from mpc_tpu_torch.parallel.lqr_sharded import make_lqt_horizon_sharded
+    from mpc_tpu_torch.parallel.mesh import make_horizon_mesh
+    from mpc_tpu_torch.solver.lqr import lqt_solve_parallel
+    args = [torch.as_tensor(a, device=world1)
+            for a in mesh_lqt_problem(4, 64)]
+    got = make_lqt_horizon_sharded(make_horizon_mesh(1, 1))(*args)
+    want = lqt_solve_parallel(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_world_of_one_batched_ilqr_step_equals_unsharded(world1):
+    """build_vehicle_ilqr_controller(mesh=) over one rank: a step equals the
+    unsharded controller's with the parallel-scan backward pass."""
+    from mpc_tpu_torch.config import IlqrConfig
+    from mpc_tpu_torch.parallel.ilqr_sharded import BatchedMpcController
+    from mpc_tpu_torch.parallel.mesh import make_horizon_mesh
+    kw = dict(n_horiz=8, bound_state_constraints=True,
+              alm_cfg=AlmConfig(delta=1e-3, max_iter=4, sigma_0=1e3),
+              ilqr_cfg=IlqrConfig(max_iter=15, parallel_backward=True))
+    ctrl = build_vehicle_ilqr_controller(mesh=make_horizon_mesh(1, 1), **kw)
+    assert isinstance(ctrl, BatchedMpcController)
+    base = build_vehicle_ilqr_controller(**kw)
+    rng = np.random.default_rng(0)
+    y0 = np.zeros((8, 6), np.float32)
+    y0[:, 1] = rng.uniform(-0.05, 0.05, 8)
+    y0[:, 3] = rng.uniform(0.3, 0.8, 8)
+    param = {"y0": torch.as_tensor(y0, device=world1), "p": VehicleParams(),
+             "centerline": straight_centerline(100, device=world1)}
+    got = ctrl.step(ctrl.init_carry(8), param)
+    want = base.step(base.init_carry(8), param)
+    for g, w in zip(got.result, want.result):
+        if g is not None:
+            assert torch.equal(g, w)

@@ -96,14 +96,41 @@ def test_unported_options_raise():
     # (tests/test_torch_mpc_config1.py, tests/test_torch_mpc_constrained.py),
     # and so are the windowed search and the obstacle field, which choose
     # the plain OCP (tests/test_torch_obstacle.py); the horizon-sharded
-    # AL-iLQR is the option left, and it raises
-    import pytest
+    # AL-iLQR, the option that raised last, is ported too: over a world of
+    # one rank in this process it is the batch-native controller, and its
+    # step is the unsharded controller's with the parallel-scan backward
+    # pass (a scan over one rank folds in identity elements, which is
+    # exact)
+    import torch.distributed as dist
+    from mpc_tpu_torch.config import AlmConfig, IlqrConfig
+    from mpc_tpu_torch.parallel.distributed import initialize
+    from mpc_tpu_torch.parallel.ilqr_sharded import BatchedMpcController
+    from mpc_tpu_torch.parallel.mesh import make_horizon_mesh
     for kw in ({"window": 20}, {"obstacle_weight": 1.0}):
         prob = tmpc.build_vehicle_ocp(n_horiz=4, device="cpu", **kw)
         assert prob.cost_multi is None
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tmpc.build_vehicle_ilqr_controller(n_horiz=4, mesh=object(),
-                                           device="cpu")
+    initialize("gloo", "cpu", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        kw = dict(n_horiz=4, bound_state_constraints=True,
+                  alm_cfg=AlmConfig(delta=1e-3, max_iter=4, sigma_0=1e3),
+                  ilqr_cfg=IlqrConfig(max_iter=10, parallel_backward=True),
+                  device="cpu")
+        ctrl = tmpc.build_vehicle_ilqr_controller(
+            mesh=make_horizon_mesh(1, 1), **kw)
+        assert isinstance(ctrl, BatchedMpcController)
+        base = tmpc.build_vehicle_ilqr_controller(**kw)
+        y0 = torch.tensor([[0.0, 0.05, 0.0, 0.5, 0.0, 0.0],
+                           [0.0, -0.03, 0.1, 0.8, 0.0, 0.0]])
+        param = {"y0": y0, "p": TVehicleParams(),
+                 "centerline": centerline_from_numpy(
+                     np.asarray(straight_centerline(100)))}
+        got = ctrl.step(ctrl.init_carry(2, device="cpu"), param)
+        want = base.step(base.init_carry(2, device="cpu"), param)
+        for a, b in zip(got.result, want.result):
+            if a is not None:
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 def _port_modules():

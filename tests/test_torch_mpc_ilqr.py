@@ -183,9 +183,19 @@ def test_default_device_and_unported_options():
         pytest.skip("checks the behaviour without a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmpc.build_vehicle_ilqr_controller(n_horiz=4)
-    # the obstacle field is ported (tests/test_torch_obstacle_ilqr.py)
+    # the obstacle field is ported (tests/test_torch_obstacle_ilqr.py), and
+    # so is the horizon-sharded mesh (tests/test_torch_ilqr_sharded.py):
+    # over a world of one rank in this process it is the batched controller
     assert tmpc.build_vehicle_ilqr_controller(
         n_horiz=4, obstacle_weight=1.0, device="cpu").problem.uses_obstacles
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tmpc.build_vehicle_ilqr_controller(n_horiz=4, mesh=object(),
-                                           device="cpu")
+    import torch.distributed as dist
+    from mpc_tpu_torch.parallel.distributed import initialize
+    from mpc_tpu_torch.parallel.ilqr_sharded import BatchedMpcController
+    from mpc_tpu_torch.parallel.mesh import make_horizon_mesh
+    initialize("gloo", "cpu", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        assert isinstance(tmpc.build_vehicle_ilqr_controller(
+            n_horiz=4, mesh=make_horizon_mesh(1, 1), device="cpu"),
+            BatchedMpcController)
+    finally:
+        dist.destroy_process_group()
