@@ -121,6 +121,23 @@ fails the run with a nonzero exit:
    (1, 2), each against (a) within the CPU tests' bands (the inner
    iterations' band at N=40); (c) with more than one card, (b) on NCCL,
    else a line saying it was not run.
+9. the entry points ("entry points", ``entry_points_phase``): the demos
+   of mpc_tpu_torch/examples/ through their ``main(argv)`` on the card,
+   vehicle_mpc over its 400 steps at batch 1, with --circle and with
+   --batch 1024 over 10; hanging_chain; --circle and the chain at a cut
+   depth (``SMOKE_DEPTH``); lane_change_game, its decisions against the
+   same demo on the CPU; scenario_suite at batch 2048 over 4 steps in
+   segments of 2 with a checkpoint, then again from it; ``entry()`` and
+   one call of its step; ``dryrun_multichip(1)`` (and over every card
+   where there are several); each with the launch counts set to 0 just
+   before it and read just after. K1 must launch in vehicle_mpc, entry()
+   and the dry run, K1 roads in scenario_suite, no fan kernel in the chain
+   and game demos; states finite; the converged fraction >= 0.99 in
+   vehicle_mpc and --batch 1024, >= 0.98 in scenario_suite, at most 2
+   failed steps with --circle (``ENTRY_LIMITS``: the JAX package's own
+   runs set the last two); the chain's floor violation with MPC <= 1e-4;
+   the resumed suite's states equal to those of the run that wrote the
+   checkpoint.
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -163,7 +180,13 @@ SMOKE_DEPTH = {"ss_n40": dict(n_warmup=2, n_steps=2),
                "config4": dict(n_loops=1),
                "ms_n40_m8": dict(n_warmup=1, n_steps=1),
                "config5_obs": dict(n_warm_steps=0, n_sim=2),
-               "chain": dict(n_steps=3)}
+               "chain": dict(n_steps=3),
+               # phase 9's demos (their flag --n-sim): on the H100 the
+               # chain's first 10 steps after its disturbance took 88 s
+               # (some 530 PANOC iterations a step; the source runs 180),
+               # vehicle_mpc --circle's first 100 took 42.5 s
+               "hanging_chain": dict(n_sim=2),
+               "vehicle_mpc --circle": dict(n_sim=50)}
 # A lane of these paths may run to a non-finite state. Once the augmented
 # Lagrangian is stiff enough that PANOC's step size falls to gamma_min, the
 # reference accepts any step (mpc_tpu/solver/panoc.py:294), and a segment
@@ -1094,6 +1117,140 @@ def parallel_phase(bench, fp, info, k1):
     return runs
 
 
+# ---- the entry points (mpc_tpu_torch/examples/, mpc_tpu_torch/entry.py) ----
+
+# Each demo run's limit: the least converged fraction, or the most failed
+# steps. The suite demo solves in one tier at max_iter 60, which leaves
+# some lanes of its cold first step unconverged in the JAX package too:
+# over its first 4 steps on the first 256 of these scenarios,
+# examples/scenario_suite.py reads 0.9873 on the CPU (the port's demo
+# 0.9844 there, 0.9865 at 2048 on the H100). On the circle the JAX
+# package's own closed loop fails 2 of its first 100 steps, and 0-2 from
+# the initial state moved by one ulp (15 draws; tests/
+# test_torch_example_vehicle.py run as a script); of its first 50 none
+# (examples/vehicle_mpc.py --circle --n-sim 50 on the CPU), the port's
+# one on the H100.
+ENTRY_LIMITS = {"vehicle_mpc": dict(min_conv=0.99),
+                "vehicle_mpc --circle": dict(max_failures=2),
+                "vehicle_mpc --batch 1024": dict(min_conv=0.99),
+                "scenario_suite": dict(min_conv=0.98)}
+ENTRY_MAX_FLOOR_VIOLATION = 1e-4    # the chain demo with MPC: its ALM delta
+
+
+def entry_points_phase(fp):
+    """Phase 9, the port's own entry points, each driven as a user runs it
+    (the demos' ``main(argv)``, ``entry()``, ``dryrun_multichip``) on the
+    card with every launch count set to 0 just before it and read just
+    after. K1 must have launched in vehicle_mpc, entry() and
+    dryrun_multichip(1), K1 roads in scenario_suite, no fan kernel in the
+    chain and game demos. Every state must be finite, each run within its
+    ``ENTRY_LIMITS``, the chain's floor violation with MPC <= 1e-4, the
+    game's decisions those of the same demo on the CPU, and the resumed
+    suite's states those of the run that wrote the checkpoint. Returns the
+    launches of each run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mpc_tpu_torch.entry import dryrun_multichip, entry
+    from mpc_tpu_torch.examples import (hanging_chain, lane_change_game,
+                                        scenario_suite, vehicle_mpc)
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def run(tag, fn, kernel=None):
+        """Drive ``fn`` with the counts reset; ``kernel`` is the count that
+        must move ("K1" or "K1 roads"; None: no fan kernel may launch)."""
+        wrappers = _reset_counts(fp)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        road = fp.fan_value_and_grad.road_launches
+        counts = {"K1": fp.fan_value_and_grad.launches - road,
+                  "K1 roads": road, "K2": wrappers[1].launches,
+                  "K3": wrappers[2].launches}
+        runs[tag] = counts
+        print(f"entry points {tag}: {wall:.2f} s, launches {counts}")
+        if kernel is None and any(counts.values()):
+            fail(f"entry points {tag}: a path without a fan kernel "
+                 f"launched one: {counts}")
+        if kernel is not None and not counts[kernel]:
+            fail(f"entry points {tag}: {kernel} never launched")
+        return out
+
+    def demo(tag, module, argv, kernel=None):
+        out = run(tag, lambda: module.main(argv), kernel)
+        for key in ("final_states", "ys"):
+            if key in out and not np.isfinite(out[key]).all():
+                fail(f"entry points {tag}: non-finite state")
+        limit = ENTRY_LIMITS.get(tag, {})
+        conv = out.get("converged_fraction")   # None: nothing left to run
+        if conv is not None and not conv >= limit.get("min_conv", 0.0):
+            fail(f"entry points {tag}: converged fraction {conv} < "
+                 f"{limit['min_conv']}")
+        if "max_failures" in limit \
+                and out["failures"] > limit["max_failures"]:
+            fail(f"entry points {tag}: {out['failures']} failed steps > "
+                 f"{limit['max_failures']}")
+        return out
+
+    demo("vehicle_mpc", vehicle_mpc, [], "K1")
+    demo("vehicle_mpc --circle", vehicle_mpc,
+         ["--circle", "--n-sim",
+          str(SMOKE_DEPTH["vehicle_mpc --circle"]["n_sim"])], "K1")
+    demo("vehicle_mpc --batch 1024", vehicle_mpc,
+         ["--batch", "1024", "--n-sim", "10"], "K1")
+
+    n_sim = SMOKE_DEPTH["hanging_chain"]["n_sim"]
+    chain = demo("hanging_chain", hanging_chain, ["--n-sim", str(n_sim)])
+    viol = chain["max_floor_violation_mpc_unrounded"]
+    if not viol <= ENTRY_MAX_FLOOR_VIOLATION:
+        fail(f"entry points hanging_chain: a ball {viol:.3e} below the "
+             f"floor with MPC")
+
+    game = demo("lane_change_game", lane_change_game, [])
+    plain = lane_change_game.main(["--device", "cpu"])
+    for name in ("test_1", "test_2", "test_3"):
+        if game[name] != plain[name]:
+            fail(f"entry points lane_change_game {name}: {game[name]} on "
+                 f"the card, {plain[name]} on the CPU")
+
+    with tempfile.TemporaryDirectory() as work:
+        argv = ["--batch", "2048", "--n-sim", "4", "--segment", "2",
+                "--checkpoint", os.path.join(work, "suite.npz")]
+        suite = demo("scenario_suite", scenario_suite, argv, "K1 roads")
+        resumed = demo("scenario_suite resumed", scenario_suite, argv)
+    if suite["nan_scenarios"]:
+        fail(f"entry points scenario_suite: {suite['nan_scenarios']} "
+             f"scenarios ended NaN")
+    if not np.array_equal(resumed["final_states"], suite["final_states"]):
+        fail("entry points scenario_suite: the resumed run's states differ "
+             "from those of the run that wrote the checkpoint")
+
+    fn, args = entry()
+    u0, U = run("entry()", lambda: fn(*args), "K1")
+    if tuple(u0.shape) != (1, 2) or tuple(U.shape) != (1, 24) \
+            or not bool(torch.isfinite(U).all()):
+        fail(f"entry points entry(): u0 {tuple(u0.shape)}, U "
+             f"{tuple(U.shape)}, finite {bool(torch.isfinite(U).all())}")
+    print(f"entry points entry(): u0 {u0.tolist()}")
+
+    shapes = run("dryrun_multichip(1)", lambda: dryrun_multichip(1), "K1")
+    print(f"entry points dryrun_multichip(1): {shapes}")
+    n = torch.cuda.device_count()
+    if n > 1:
+        shapes = run(f"dryrun_multichip({n})", lambda: dryrun_multichip(n),
+                     "K1")
+        print(f"entry points dryrun_multichip({n}): {shapes}")
+    else:
+        print("entry points dryrun_multichip: one card, so no multi-rank "
+              "run (NCCL needs a card per rank)")
+    print(f"entry points phase done in {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    return runs
+
+
 # ---- the LQT solves (mpc_tpu_torch/solver/lqr.py) --------------------------
 
 LQT_TOL = 2e-4          # us, xs against the float64 KKT solution
@@ -1523,6 +1680,9 @@ def main():
 
     # ---- 8. the sharded paths ---------------------------------------------
     parallel_phase(bench, fp, info, measured[0])
+
+    # ---- 9. the entry points ----------------------------------------------
+    entry_runs = entry_points_phase(fp)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -1546,7 +1706,9 @@ def main():
             "library_ms": None, "single_lane_ms": m["single_lane_ms"],
             "serial_chain_ms": m["serial_chain_ms"], "paths": list(k.paths),
             **{key: m[key] for key in ("launches_mesh_dp", "mesh_dp_ms_by_E",
-                                       "mesh_dp_lanes_checked") if key in m}})
+                                       "mesh_dp_lanes_checked") if key in m},
+            "launches_entry_points": {tag: c[k.label] for tag, c in
+                                      entry_runs.items() if c[k.label]}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

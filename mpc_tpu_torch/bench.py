@@ -97,16 +97,17 @@ copies. Rank 0 prints.
     python -m mpc_tpu_torch.bench [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain|mesh_dp|mesh_lqt|mesh_ilqr]
     torchrun --nproc_per_node=<gpus> -m mpc_tpu_torch.bench mesh_dp
 
-Prints a detail JSON line (with the card's name and power limit) and, last,
-the result JSON line. Without a CUDA device it exits with an error: a
-measurement is never taken on the CPU.
+Prints, for the closed-loop cells, the lane that spent the most inner
+iterations in each timed step and that count (``{"slowest_lane_per_step":
+[[lane, iterations], ...]}``), then a detail JSON line (with the card's
+name and power limit) and, last, the result JSON line. Without a CUDA
+device it exits with an error: a measurement is never taken on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from typing import Callable, Optional
@@ -137,21 +138,11 @@ from mpc_tpu_torch.parallel.sharding import make_sharded_vehicle_solver
 from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
 from mpc_tpu_torch.solver.lqr import lqt_solve_parallel
 from mpc_tpu_torch.sim.two_car import make_two_car_game
+from mpc_tpu_torch.utils.perfdb import gpu_info
 
 REALTIME_BUDGET_S = 0.05   # Ts, the control interval
 BATCH, N_HORIZ, CENTERLINE_POINTS = 1024, 12, 100
 N_WARMUP, N_STEPS, N_LATENCY, SEED = 5, 20, 50, 0
-
-
-def gpu_info() -> dict:
-    """Name and power limit of the first card, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    first = out.splitlines()[0]
-    name, power = (s.strip() for s in first.rsplit(",", 1))
-    return {"nvidia_smi": first, "name": name, "power_limit": power}
 
 
 def initial_states(batch: int, seed: int = SEED) -> np.ndarray:
@@ -987,7 +978,11 @@ def run(cell: Cell = HEADLINE) -> dict:
         if cell.trigger_threshold is not None:
             trig.append(out.triggered.float().mean())
     times = np.asarray(times)
-    iters = torch.stack(iters).float()
+    iters = torch.stack(iters)
+    # [lane, its inner iterations] of the lane that spent the most in each
+    # timed step (the first such lane where several tie)
+    slowest = torch.stack([iters.argmax(dim=1), iters.amax(dim=1)], dim=1)
+    iters = iters.float()
     r = {
         "batch": cell.batch, "n_horiz": cell.n_horiz, "n_steps": cell.n_steps,
         # all the timed work over all the timed wall time
@@ -997,6 +992,7 @@ def run(cell: Cell = HEADLINE) -> dict:
         "mean_converged_fraction": float(torch.stack(conv).mean()),
         "inner_iters_mean": float(iters.mean()),
         "inner_iters_max": int(iters.max()),
+        "slowest_lane_per_step": slowest.tolist(),
     }
     finite = bool(torch.isfinite(ys).all())
     r["nonfinite_lanes"] = int((~torch.isfinite(ys)).any(dim=1).sum())
@@ -1028,6 +1024,9 @@ def main(argv=None):
         dist.destroy_process_group()
         if rank:
             return
+    if "slowest_lane_per_step" in r:
+        print(json.dumps({"slowest_lane_per_step":
+                          r.pop("slowest_lane_per_step")}))
     info = gpu_info()
     r["device"] = torch.cuda.get_device_name(0)
     r["power_limit"] = info["power_limit"]

@@ -31,6 +31,7 @@ TD = 1.2
 TI = 0.15
 TAU = 0.9
 A_MAX = 7.0
+H_LANE = 3.75
 LF = 1.0
 Q1, Q2 = 0.65, 0.35
 W_SAFETY, W_VELOCITY = 0.6, 0.4

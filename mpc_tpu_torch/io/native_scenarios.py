@@ -75,6 +75,17 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the generator builds and loads here
+    (mpc_tpu/io/native_scenarios.py:70-71). Where it does not,
+    :func:`generate_scenarios` raises."""
+    try:
+        load()
+    except (OSError, RuntimeError):     # no g++, a failed build, a wrong ABI
+        return False
+    return True
+
+
 def generate_scenarios(seed: int, batch: int, size: int = 100,
                        n_obstacles: int = 2, n_threads: int = 0,
                        device=None):

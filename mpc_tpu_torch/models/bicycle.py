@@ -13,6 +13,10 @@ import torch
 
 from mpc_tpu_torch.models.params import VehicleParams
 
+PACEJKA_STATE_DIM = 6
+SIMPLIFIED_STATE_DIM = 4
+INPUT_DIM = 2
+
 
 def clip_inputs(u: torch.Tensor, p: VehicleParams) -> torch.Tensor:
     """Clip ``[d, delta]`` to the box limits (mpc_tpu/models/bicycle.py:36-40)."""
@@ -72,3 +76,9 @@ def simplified_dynamics(x: torch.Tensor, u: torch.Tensor, p: VehicleParams,
         v * torch.sin(beta) / lr,
         a * d - mu * v,
     ], dim=1)
+
+
+#: the reference's ``vmap``-ed models: the same functions here, which take
+#: a leading lane axis already
+pacejka_dynamics_batched = pacejka_dynamics
+simplified_dynamics_batched = simplified_dynamics

@@ -25,6 +25,12 @@ def rk4_step(f: Callable, x: torch.Tensor, u: torch.Tensor, p,
     return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
+def euler_step(f: Callable, x: torch.Tensor, u: torch.Tensor, p,
+               h: float) -> torch.Tensor:
+    """One forward-Euler step (mpc_tpu/models/integrators.py:52-54)."""
+    return x + h * f(x, u, p)
+
+
 def discretize(f: Callable, ts: float = DEFAULT_TS,
                substeps: int = DEFAULT_SUBSTEPS) -> Callable:
     """Build ``f_d(x, u, p) -> x_next`` from a continuous ODE ``f(x, u, p)``."""
@@ -51,3 +57,12 @@ def rollout(f_d: Callable, x0: torch.Tensor, us: torch.Tensor,
         x = f_d(x, us[:, k], p)
         xs.append(x)
     return torch.stack(xs, dim=1)
+
+
+def rollout_scan(f_d: Callable, x0: torch.Tensor, us: torch.Tensor,
+                 p) -> torch.Tensor:
+    """:func:`rollout` under the JAX package's other name
+    (mpc_tpu/models/integrators.py:77-84). There ``rollout`` is a jitted
+    entry point and ``rollout_scan`` its untraced body for use inside a
+    larger jitted program; torch traces nothing, so the two are one."""
+    return rollout(f_d, x0, us, p)

@@ -64,6 +64,15 @@ class VehicleParams:
         return torch.tensor([float(getattr(self, f)) for f in PARAM_FIELDS],
                             dtype=torch.float32, device=device)
 
+    @classmethod
+    def from_vector(cls, vec) -> "VehicleParams":
+        """Rebuild from the canonical 22-vector (a tensor, array or list),
+        the inverse of :meth:`to_vector`; friction and acceleration keep
+        their defaults (mpc_tpu/models/params.py:81-85). The fields are
+        host floats, so the vector's device does not matter."""
+        vals = torch.as_tensor(vec, dtype=torch.float32).tolist()
+        return cls(**dict(zip(PARAM_FIELDS, vals, strict=True)))
+
     def to_kernel_vec(self, device=None) -> torch.Tensor:
         """The 24 floats the fan kernel reads, in ``KERNEL_PARAM_FIELDS``
         order (float32, shape (24,))."""
@@ -85,3 +94,10 @@ class ChainParams:
         """``[m, D, L]`` (float32)."""
         return torch.tensor([float(self.m), float(self.D), float(self.L)],
                             dtype=torch.float32, device=device)
+
+    @classmethod
+    def from_vector(cls, vec) -> "ChainParams":
+        """Rebuild from ``[m, D, L]``, the inverse of :meth:`to_vector`
+        (mpc_tpu/models/params.py:100-102)."""
+        m, D, L = torch.as_tensor(vec, dtype=torch.float32).tolist()
+        return cls(m=m, D=D, L=L)

@@ -162,6 +162,12 @@ def compute_errors_diagnostic(pos: torch.Tensor, heading: torch.Tensor,
     return RoadErrors(cte, wrap_to_pi(desired - heading), pos_error)
 
 
+#: the reference's ``vmap``-ed errors over positions and headings with a
+#: shared centerline (mpc_tpu/ops/road.py:179-180): the same functions here
+compute_errors_ocp_batched = compute_errors_ocp
+compute_errors_diag_batched = compute_errors_diagnostic
+
+
 class Road:
     """The reference's ``Road`` (mpc_tpu/ops/road.py:182-199): a centerline,
     by default the 100-point circle of radius 5 about (0, 5), and its

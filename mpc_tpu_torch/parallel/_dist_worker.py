@@ -24,6 +24,8 @@ Jobs (``JOBS``):
 - ``ilqr_solver``: one solve of ``make_ilqr_solver_batched`` on the
   Pacejka vehicle OCP, with the augmented-Lagrangian terms of a speed bound
   (``al_args``) and skipped lanes.
+- ``dryrun``: ``entry.dryrun_parts``, the multi-rank dry run
+  (``entry.dryrun_multichip``); no inputs, the parts' output shapes out.
 
 The inputs of every job but ``box_qp`` hold ``spec``, a JSON string with
 the cases' settings, and each case's arrays under ``<case>/<name>``. A
@@ -263,8 +265,14 @@ def _ilqr_solver(spec, arrays, dev):
     return out
 
 
+def _dryrun(spec, arrays, dev):
+    from mpc_tpu_torch.entry import dryrun_parts
+    return {k: np.array(v) for k, v in dryrun_parts(dev).items()}
+
+
 JOBS = {"box_qp": _box_qp, "road_sp": _road_sp, "lqt": _lqt,
-        "solver": _solver, "ilqr": _ilqr, "ilqr_solver": _ilqr_solver}
+        "solver": _solver, "ilqr": _ilqr, "ilqr_solver": _ilqr_solver,
+        "dryrun": _dryrun}
 
 
 def main() -> None:
