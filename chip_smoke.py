@@ -55,13 +55,15 @@ fails the run with a nonzero exit:
 4. timing: each kernel and its plain version on the first captured fan of
    each shape, in turns (plain, kernel, plain, kernel). The kernel's time is
    CUDA events around the replay of one CUDA graph of 200 launches, over
-   the count (see ``launch_ms``); the plain version's the median of 50
-   (K1), 10 (K2) or 5 (K3) calls, each between its own events. Beside them: the kernel's single-lane latency (E=1 on
-   drawn inputs, at N and at N/2) and its serial chain, N times the slope
-   of the single-lane time over N (see ``serial_chain``); and its bound,
-   the larger of the bytes it must move over 3.35 TB/s and the operations
-   it must do over 67 TFLOP/s (see ``fan_bound``; beside it the former
-   count, which charged the per-stage constants to every evaluation);
+   the count (see ``launch_ms`` in mpc_tpu_torch/utils/roofline.py); the
+   plain version's the median of 50 (K1), 10 (K2) or 5 (K3) calls, each
+   between its own events. Beside them: the kernel's single-lane latency
+   (E=1 on drawn inputs, at N and at N/2) and its serial chain, N times the
+   slope of the single-lane time over N (see ``serial_chain``); and its
+   bound, the larger of the bytes it must move over 3.35 TB/s and the
+   operations it must do over 67 TFLOP/s (see ``fan_bound`` in
+   utils/roofline.py; beside it the former count, which charged the
+   per-stage constants to every evaluation);
 5. the LQT solves (mpc_tpu_torch/solver/lqr.py), sequential and parallel
    scan, at config 2's backward shapes (N=40, n=6, m=2; B=256 and B=1) on
    drawn well-posed problems with the cross term, each held against the
@@ -137,7 +139,19 @@ fails the run with a nonzero exit:
    failed steps with --circle (``ENTRY_LIMITS``: the JAX package's own
    runs set the last two); the chain's floor violation with MPC <= 1e-4;
    the resumed suite's states equal to those of the run that wrote the
-   checkpoint.
+   checkpoint;
+10. the measurements ("measurements", ``measurements_phase``): one AL-iLQR
+   inner iteration at ilqr_n40's shape composed from the solver's exposed
+   phases, equal bit for bit to one ``iterate`` from the same state; the
+   scripts mpc_tpu_torch/examples/profile_config2_phases.py and exp_mfu.py
+   at their full width (batch 256, N=40; the candidate fan at E=5120), one
+   timed call a phase (``MEASURE_REPS``), every number finite and every
+   share of a bound at most 100%; exp_shift_warm.py on both roads at batch
+   64 over 10 of its 20 steps (``SMOKE_DEPTH``), the counts set to 0 just
+   before it: K1 launched in each run, states finite, each verbatim run
+   converged >= 0.99; its K1 calls, recorded in that counted run, held
+   against the plain fan as in phase 3 (at most 20 calls of each road and
+   shape, E=320 and 128), and K1 timed at those shapes.
 
 It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -186,7 +200,10 @@ SMOKE_DEPTH = {"ss_n40": dict(n_warmup=2, n_steps=2),
                # (some 530 PANOC iterations a step; the source runs 180),
                # vehicle_mpc --circle's first 100 took 42.5 s
                "hanging_chain": dict(n_sim=2),
-               "vehicle_mpc --circle": dict(n_sim=50)}
+               "vehicle_mpc --circle": dict(n_sim=50),
+               # phase 10: its 20 steps on both roads took 66 s on the
+               # H100 (the circle's 27-28 s a start), its first 10 33 s
+               "exp_shift_warm": dict(n_sim=10)}
 # A lane of these paths may run to a non-finite state. Once the augmented
 # Lagrangian is stiff enough that PANOC's step size falls to gamma_min, the
 # reference accepts any step (mpc_tpu/solver/panoc.py:294), and a segment
@@ -292,11 +309,13 @@ class Capture(NamedTuple):
 
 
 @contextlib.contextmanager
-def recording(name, stamp=lambda: 0):
+def recording(name, stamp=lambda: 0, counted=False):
     """``fp.<name>`` replaced by a wrapper that records every call as
     ``(stamp(), args)``, each ``args`` cloned; yields the list. The
     wrapper counts its launches on whatever fp.<name> names: the
-    recording's launches land on the recorder and are dropped."""
+    recording's launches land on the recorder and are dropped, or, with
+    ``counted``, added to the wrapper's counts when the recording ends (a
+    path's counted run recorded)."""
     import torch
     from mpc_tpu_torch.ops import fused_psi as fp
     wrapper = getattr(fp, name)
@@ -313,6 +332,10 @@ def recording(name, stamp=lambda: 0):
         yield calls
     finally:
         setattr(fp, name, wrapper)
+        if counted:
+            wrapper.launches += recorder.launches
+            if hasattr(wrapper, "road_launches"):
+                wrapper.road_launches += recorder.road_launches
 
 
 def capture_fan_inputs(name, source):
@@ -431,32 +454,6 @@ def median_ms(fn, n=50, warmup=3):
     return times[len(times) // 2]
 
 
-def launch_ms(fn, n=200, warmup=3):
-    """Device time per call of ``fn``: ``n`` calls captured into one CUDA
-    graph, whose replay is timed by CUDA events, over ``n``. The replay
-    issues the launches back to back from the card's side, so the time does
-    not count the host wrapper's work between launches, which on a slow
-    host takes longer than a kernel at E=1 (launched from the host, the
-    loop would time the host there)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()      # the first replay uploads the graph
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
-
-
 def time_pair(tag, kernel, plain, n_plain, info):
     """Kernel and plain version in turns (plain, kernel, plain, kernel);
     returns the smaller time of each: the kernel's per launch over a CUDA
@@ -474,70 +471,6 @@ def time_pair(tag, kernel, plain, n_plain, info):
                  f"{n_plain})")
     print(f"{line}; CUDA events; {info['nvidia_smi']}")
     return min(ks), min(ps) if ps else None
-
-
-#: Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
-#: outside the tensor cores, and device memory
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-#: Operations of a fan lane, counted from csrc/fused_psi.cu. Rule: each add,
-#: subtract, multiply, compare and select counts 1, and so does each
-#: transcendental function (atan2f, atanf, sinf, cosf, tanf), square root and
-#: division, though each takes many instructions: the bound is a floor. A
-#: term that depends only on a stage's inputs (d, delta) and the parameters
-#: is counted once per stage (STAGE_OPS), the rest once per evaluation of
-#: f(x, d, delta) (ODE_OPS):
-#: - Pacejka, per evaluation 53: a1, a2 (2 + 2), the slip angles (atan2 and
-#:   a subtraction; atan2), sign(vx) (2 compares, a subtraction), frx (8),
-#:   the two B alpha (2), their atan (2), ffy and fry (3 + 3), cos and sin
-#:   phi (2), k0 and k1 (3 + 3), k3 and k4 (6 + 6), k5 (5); per stage 2:
-#:   cos and sin delta;
-#: - kinematic, per evaluation 8: phi + beta, its cos and sin, v cos and
-#:   v sin (2), v (sin beta / lr), fr v and acc d - fr v; per stage 6:
-#:   tan delta, lf tan delta, beta = atan2(., lf + lr), sin beta,
-#:   sin beta / lr, acc d.
-ODE_OPS = {"pacejka": 53, "simplified": 8}
-STAGE_OPS = {"pacejka": 2, "simplified": 6}
-#: The former count: nothing per stage, the kinematic model's per-stage
-#: terms (and lf + lr) charged to each of its 16 evaluations per stage, and
-#: Pacejka's cos and sin delta left out. Its bound is printed beside the
-#: bound so that earlier records stay comparable.
-FORMER_ODE_OPS = {"pacejka": 53, "simplified": 15}
-RK4_OPS = 13        # per state component and RK4 step: 3 stage points x 2,
-                    # then k1 + 2 k2 + 2 k3 + k4 (5), times h/6, plus x
-COST_OPS = 45       # one stage cost at its selected centerline points
-ARGMIN_OPS = 6      # per centerline row: 2 differences, 2 squares, sum, compare
-AL_OPS = 11         # one constraint's penalty 0.5 sigma (zeta - clip(zeta))^2
-
-
-def fan_ops(model, al, E, n_horiz, substeps, n_cl, ode_ops=None,
-            stage_ops=None):
-    """The operations of one fan call, counted by the rule above: the
-    forward pass, and the gradient as one more pass over the same operations
-    without the argmin (its index is held constant), the least a reverse
-    sweep does."""
-    sd = 6 if model == "pacejka" else 4
-    step = 4 * (ode_ops or ODE_OPS)[model] + RK4_OPS * sd
-    stage = ((stage_ops or STAGE_OPS)[model] + substeps * step + COST_OPS
-             + (sd * AL_OPS if al else 0))
-    return E * n_horiz * (2 * stage + ARGMIN_OPS * n_cl)
-
-
-def fan_bound(model, al, E, n_horiz, substeps, n_cl, operands, outputs):
-    """``(bound_ms, bound_by, bytes, operations, former_bound_ms)`` of one
-    fan call: the larger of the bytes it must move (each operand read once,
-    each output written once) over the memory rate and the operations it
-    must do (``fan_ops``) over the float32 rate; and the same bound under the
-    former count (``FORMER_ODE_OPS``, nothing per stage)."""
-    shape = (model, al, E, n_horiz, substeps, n_cl)
-    ops = fan_ops(*shape)
-    former_ops = fan_ops(*shape, FORMER_ODE_OPS, dict.fromkeys(STAGE_OPS, 0))
-    nbytes = sum(t.numel() * t.element_size() for t in operands + outputs)
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", nbytes, ops,
-            max(former_ops / PEAK_F32_FLOPS * 1e3, t_bytes))
 
 
 def serial_chain(k, wrapper, fp, info):
@@ -952,10 +885,8 @@ def parallel_phase(bench, fp, info, k1):
     for c, kw in ((bench.MESH_DP, {}), (bench.MESH_LQT, {"oracle": kkt_oracle}),
                   (bench.MESH_ILQR, {})):
         wrappers = _reset_counts(fp)
-        fn = {"mesh_dp": bench.run_mesh_dp, "mesh_lqt": bench.run_mesh_lqt,
-              "mesh_ilqr": bench.run_mesh_ilqr}[c.name]
         with torch.no_grad():
-            r = fn(c, **kw)
+            r = bench.MESH_RUNNERS[c.name](c, **kw)
         r["fan_kernel_launches"] = {w.__name__: w.launches for w in wrappers}
         runs[c.name] = r
         print(json.dumps({"bench": dict(r, cell=c.name)}))
@@ -1251,6 +1182,162 @@ def entry_points_phase(fp):
     return runs
 
 
+# ---- the AL-iLQR measurements and the warm-start experiment --------------
+
+# timed calls of each phase (the scripts' 10): at 3 the phase took 96 s
+# on the H100, the two scripts' phases 60 s of it
+MEASURE_REPS = 1
+SHIFT_WARM_BATCH = 64      # exp_shift_warm's full batch
+SHIFT_WARM_MIN_CONV = 0.99  # each verbatim run of exp_shift_warm
+SHIFT_WARM_MAX_CALLS = 20   # its recorded K1 calls checked per road, shape
+
+
+def measurements_phase(fp, k1, info):
+    """Phase 10: the measurement scripts of mpc_tpu_torch/examples/ on the
+    card. First the AL-iLQR inner iteration at ilqr_n40's shape (batch 256,
+    N=40) composed from its exposed phases (``IlqrPhases``: derivatives,
+    the LQT solve, the forward fan, the step size's pick) against one
+    ``iterate`` from the same state: every field bit for bit. Then
+    profile_config2_phases and exp_mfu at their full width, ``MEASURE_REPS``
+    timed calls a phase: every time finite, every share of a bound at most
+    100%; then exp_shift_warm on both roads at batch 64 over the first
+    10 of its 20 steps (``SMOKE_DEPTH``), with the launch counts set to 0
+    just before it: K1 launched in every run, every state finite, each
+    verbatim run converged >= 0.99. Its K1 calls are recorded (counted
+    still) and at most ``SHIFT_WARM_MAX_CALLS`` of each road and shape
+    (E = 5 and 2 x the batch) held against the plain fan, and K1 timed at
+    those shapes; ``k1``, K1's row of measurements, gets both. Returns the
+    K1 launches of each exp_shift_warm run."""
+    import math
+
+    import torch
+    from mpc_tpu_torch.examples import exp_mfu, exp_shift_warm
+    from mpc_tpu_torch.examples import profile_config2_phases as pcp
+    t_phase = time.perf_counter()
+
+    batch = 256
+    with torch.no_grad():
+        s = pcp.setup(pcp.draw_inputs(batch), "cuda")
+        st, ph = s.state, s.phases
+        if not bool(s.cond(st).all()):
+            fail("measurements: the prepared state's loop condition does not "
+                 "hold on every lane")
+        want = s.iterate(st)
+        Ks, kos, gnorm = ph.lqt_solve(ph.derivatives(st.xs, st.us), st.reg)
+        got = ph.accept(st, gnorm, *ph.forward(st.xs, st.us, Ks, kos))
+        torch.cuda.synchronize()
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    for field in ("us", "xs", "cost", "reg", "iters", "converged",
+                  "grad_norm"):
+        a, b = getattr(got, field), getattr(want, field)
+        if not torch.equal(bits(a), bits(b)):
+            fail(f"measurements: the composed phases' {field} differs from "
+                 f"one iterate's (max gap "
+                 f"{float((a.double() - b.double()).abs().max()):.3e})")
+    print(f"measurements: the exposed phases composed equal one iterate bit "
+          f"for bit at batch {batch}, N={pcp.N}")
+
+    def finite(tag, values):
+        bad = [v for v in values if v is not None
+               and not math.isfinite(v)]
+        if bad:
+            fail(f"measurements {tag}: non-finite numbers {bad}")
+
+    row = pcp.main(["--reps", str(MEASURE_REPS)])
+    finite("profile_config2_phases",
+           [v for k, v in row.items() if k.endswith(("_ms", "_kernels"))])
+    if not all(row[f"{p}_kernels"] for p in pcp.PHASES):
+        fail(f"measurements profile_config2_phases: a phase launched no "
+             f"kernel: {row}")
+    mfu = exp_mfu.main(["--reps", str(MEASURE_REPS)])
+    for r in mfu["rows"]:
+        shares = [r.get("pct_of_bound"), r.get("device_pct_of_bound")]
+        if None in shares:
+            fail(f"measurements exp_mfu {r['kernel']}: no share of the "
+                 f"bound on the card")
+        finite(r["kernel"], [r["wall_ms"], r["device_ms"], r["bound_ms"],
+                             *shares])
+        for key in ("pct_of_bound", "device_pct_of_bound"):
+            if r[key] > 100.0:
+                fail(f"measurements exp_mfu {r['kernel']}: {key} "
+                     f"{r[key]:.3f}% > 100%, a fault of the count")
+
+    _reset_counts(fp)
+    with recording("fan_value_and_grad", counted=True) as calls:
+        rows = exp_shift_warm.main(
+            ["--batch", str(SHIFT_WARM_BATCH),
+             "--n-sim", str(SMOKE_DEPTH["exp_shift_warm"]["n_sim"])])
+    launches = {}
+    for name, r in rows.items():
+        launches[name] = r["k1_launches"]
+        if not r["states_finite"]:
+            fail(f"measurements exp_shift_warm {name}: non-finite state")
+        if not r["k1_launches"]:
+            fail(f"measurements exp_shift_warm {name}: K1 never launched")
+        if name.endswith("_verbatim") \
+                and not r["mean_converged_fraction"] >= SHIFT_WARM_MIN_CONV:
+            fail(f"measurements exp_shift_warm {name}: converged "
+                 f"{r['mean_converged_fraction']} < {SHIFT_WARM_MIN_CONV}")
+    if sum(launches.values()) != fp.fan_value_and_grad.launches \
+            or len(calls) != fp.fan_value_and_grad.launches:
+        fail(f"measurements exp_shift_warm: {launches} K1 launches in the "
+             f"runs, {fp.fan_value_and_grad.launches} counted, "
+             f"{len(calls)} recorded")
+    shift_warm_k1(fp, calls, k1, info)
+    print(f"measurements phase done in {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    return launches
+
+
+def shift_warm_k1(fp, calls, k1, info):
+    """K1 on exp_shift_warm's recorded fans: each road's calls (one road
+    a run) at each shape, at most ``SHIFT_WARM_MAX_CALLS`` of them, against
+    the plain fan, and K1's time at each shape."""
+    import torch
+    from mpc_tpu_torch.examples.exp_shift_warm import ROADS
+    roads = []              # [(cltab, its calls)], in the runs' order
+    for c in calls:
+        for cltab, group in roads:
+            if torch.equal(cltab, c[1][2]):
+                group.append(c)
+                break
+        else:
+            roads.append((c[1][2], [c]))
+    if len(roads) != len(ROADS):
+        fail(f"exp_shift_warm gave K1 {len(roads)} roads, not {len(ROADS)}")
+    shapes = (5 * SHIFT_WARM_BATCH, 2 * SHIFT_WARM_BATCH)
+    K1 = KERNELS[0]
+    reports, ms_by_E = [], {}
+    for road, (_, group) in zip(ROADS, roads):
+        by_E = {}
+        for c in group:
+            by_E.setdefault(c[1][0].shape[0], []).append(c)
+        if sorted(by_E) != sorted(shapes):
+            fail(f"exp_shift_warm {road} gave K1 the shapes {sorted(by_E)}, "
+                 f"not {shapes}")
+        kept = [c for v in by_E.values()
+                for c in spread(v, SHIFT_WARM_MAX_CALLS)]
+        reports += [check(f"K1 exp_shift_warm {road} E={E} ({n} calls)",
+                          psi, grad, u, y0, ct, pv, fa, model="pacejka")
+                    for E, n, psi, grad, u, y0, ct, pv, fa, _ in
+                    check_captured(fp.fan_value_and_grad, kept,
+                                   lambda a: split(K1, a))]
+        for E in shapes:
+            if E not in ms_by_E:
+                args = by_E[E][0][1]
+                ms_by_E[E] = launch_ms(lambda: fp.fan_value_and_grad(*args))
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            *(r["max_abs_err_within_bar"] for r in reports))
+    k1["exp_shift_warm_lanes_checked"] = sum(r["lanes"] for r in reports)
+    k1["exp_shift_warm_ms_by_E"] = ms_by_E
+    print(f"measurements: K1 on exp_shift_warm's {len(calls)} fan calls, "
+          f"{k1['exp_shift_warm_lanes_checked']} lanes checked; K1 "
+          + ", ".join(f"{ms:.4f} ms at E={E}" for E, ms in ms_by_E.items())
+          + f" (a CUDA graph of 200 launches); {info['nvidia_smi']}")
+
+
 # ---- the LQT solves (mpc_tpu_torch/solver/lqr.py) --------------------------
 
 LQT_TOL = 2e-4          # us, xs against the float64 KKT solution
@@ -1433,7 +1520,8 @@ KERNELS = (
            + ((37, "circle", dict(mass=0.25, cm1=0.4), None),),
            0, (Capture("HEADLINE", 3, (5120, 2048)),
                Capture("CONFIG5", 3, (5, 2), batch1=True)), None, 50, 0.99,
-           paths=("headline", "config5 batch-1 loop", "etc", "mesh_dp")),
+           paths=("headline", "config5 batch-1 loop", "etc", "mesh_dp",
+                  "exp_shift_warm")),
     Kernel("K2", "fused_psi_fan_kin", "K2, model=simplified",
            "kin_fan_value_and_grad", "simplified", False, "CONFIG1", 20, 4,
            tuple((E, road, {}, None) for E in (1, 37, 5120)
@@ -1577,6 +1665,9 @@ def main():
         fail(f"unknown arguments {sys.argv[1:]}: the one option is --timing")
     sys.path.insert(0, HERE)
     import torch
+    # the kernels' timing and bounds, for every phase that times a kernel
+    global fan_bound, launch_ms
+    from mpc_tpu_torch.utils.roofline import fan_bound, launch_ms
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1683,6 +1774,9 @@ def main():
 
     # ---- 9. the entry points ----------------------------------------------
     entry_runs = entry_points_phase(fp)
+
+    # ---- 10. the measurements -------------------------------------------
+    shift_warm = measurements_phase(fp, measured[0], info)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     rows = []
@@ -1706,9 +1800,14 @@ def main():
             "library_ms": None, "single_lane_ms": m["single_lane_ms"],
             "serial_chain_ms": m["serial_chain_ms"], "paths": list(k.paths),
             **{key: m[key] for key in ("launches_mesh_dp", "mesh_dp_ms_by_E",
-                                       "mesh_dp_lanes_checked") if key in m},
+                                       "mesh_dp_lanes_checked",
+                                       "exp_shift_warm_ms_by_E",
+                                       "exp_shift_warm_lanes_checked")
+               if key in m},
             "launches_entry_points": {tag: c[k.label] for tag, c in
-                                      entry_runs.items() if c[k.label]}})
+                                      entry_runs.items() if c[k.label]},
+            **({"launches_exp_shift_warm": shift_warm}
+               if k.label == "K1" else {})})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@ NVIDIA Hopper card.
 
 The solver runs in float32, like the JAX package on the TPU, so matrix
 products must not silently drop to TF32 on the card: both switches are set
-once, here.
+once, here. The package's top-level names are the JAX package's
+(``mpc_tpu/__init__.py``): the configurations and the parameter sets.
 """
 
 import torch
@@ -18,3 +19,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from mpc_tpu_torch.config import AlmConfig, MpcConfig, PanocConfig  # noqa: F401,E402
+from mpc_tpu_torch.models.params import ChainParams, VehicleParams  # noqa: F401,E402

@@ -106,6 +106,7 @@ device it exits with an error: a measurement is never taken on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import sys
@@ -361,12 +362,14 @@ CELLS = {c.name: c for c in (HEADLINE, CONFIG1, SS_N40, ILQR_N40, ETC,
 
 
 class ClosedLoop:
-    """A cell's controller, plant and road on the card;
-    ``step(ys, carry) -> (ys, carry, out)`` is one closed-loop step, with
-    ``out`` the controller's step output (``out.result`` the solve's)."""
+    """A cell's controller, plant and road on the card (or on ``device``
+    where a caller names one); ``step(ys, carry) -> (ys, carry, out)`` is
+    one closed-loop step, with ``out`` the controller's step output
+    (``out.result`` the solve's)."""
 
-    def __init__(self, cell: Cell = HEADLINE):
-        dev = self.device = _cuda()
+    def __init__(self, cell: Cell = HEADLINE, device=None):
+        dev = self.device = _cuda() if device is None \
+            else torch.device(device)
         self.cell = cell
         self.params = VehicleParams()
         self.f_d = discretize(pacejka_dynamics if cell.model == "pacejka"
@@ -791,18 +794,20 @@ def mesh_lqt_problem(batch: int, N: int, n: int = 6, m: int = 2,
             np.broadcast_to(qN, (batch, n)).copy())
 
 
-def _timed(fn, n_warmup: int, n_timed: int):
+def _timed(fn, n_warmup: int, n_timed: int,
+           timed_call=contextlib.nullcontext):
     """``(last output, host-clock seconds of each timed call)``, each call
-    ended by a sync."""
+    ended by a sync and run inside ``timed_call()``."""
     for _ in range(n_warmup):
         out = fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n_timed):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        with timed_call():
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     return out, times
 
 
@@ -813,10 +818,12 @@ def _world() -> dict:
             "backend": dist.get_backend()}
 
 
-def run_mesh_dp(cell: MeshCell = MESH_DP) -> dict:
+def run_mesh_dp(cell: MeshCell = MESH_DP,
+                timed_call=contextlib.nullcontext) -> dict:
     """The scenario-sharded solve (examples/exp_mesh_scaling.py:46-75):
     ``make_mesh(world, 1)``, one warm-up call, then the median of the timed
-    calls; solves/s is the batch over that median. The fan is K1."""
+    calls, each run inside ``timed_call()``; solves/s is the batch over that
+    median. The fan is K1."""
     w = _world()
     dev = _cuda()
     mesh = make_mesh(w["world"], 1)
@@ -832,7 +839,8 @@ def run_mesh_dp(cell: MeshCell = MESH_DP) -> dict:
         return out
 
     fp.fan_value_and_grad.launches = 0
-    (u, lam, conv, iters), times = _timed(call, cell.n_warmup, cell.n_steps)
+    (u, lam, conv, iters), times = _timed(call, cell.n_warmup, cell.n_steps,
+                                          timed_call)
     p50 = float(np.median(times))
     return {**w, "mesh": [w["world"], 1], "batch": cell.batch,
             "n_horiz": cell.n_horiz, "solves_per_s": cell.batch / p50,
@@ -847,18 +855,20 @@ def run_mesh_dp(cell: MeshCell = MESH_DP) -> dict:
 
 
 def run_mesh_lqt(cell: MeshCell = MESH_LQT,
-                 oracle: Optional[Callable] = None) -> dict:
+                 oracle: Optional[Callable] = None,
+                 timed_call=contextlib.nullcontext) -> dict:
     """The horizon-sharded LQT (examples/exp_mesh_lqt.py:58-75):
     ``make_horizon_mesh(1, world)``, one warm-up call, then the median of
-    the timed calls; its error against ``lqt_solve_parallel`` on the same
-    problem and, given ``oracle(x0, A, B, c, Q, q, R, r, QN, qN, P) ->
+    the timed calls (each inside ``timed_call()``); its error against
+    ``lqt_solve_parallel`` on the same problem and, given ``oracle(x0, A, B, c, Q, q, R, r, QN, qN, P) ->
     (xs, us)`` (a float64 solution of one lane), against it."""
     w = _world()
     mesh = make_horizon_mesh(1, w["world"])
     solve = make_lqt_horizon_sharded(mesh)
     prob = mesh_lqt_problem(cell.batch, cell.n_horiz)
     args = [torch.as_tensor(a, device=_cuda()) for a in prob]
-    sol, times = _timed(lambda: solve(*args), cell.n_warmup, cell.n_steps)
+    sol, times = _timed(lambda: solve(*args), cell.n_warmup, cell.n_steps,
+                        timed_call)
     ref = lqt_solve_parallel(*args)
     r = {**w, "mesh": [1, w["world"]], "batch": cell.batch,
          "n_horiz": cell.n_horiz, "p50_s": float(np.median(times)),
@@ -889,14 +899,16 @@ def mesh_ilqr_controller(mesh, device=None):
         device=device)
 
 
-def run_mesh_ilqr(cell: MeshCell = MESH_ILQR) -> dict:
+def run_mesh_ilqr(cell: MeshCell = MESH_ILQR,
+                  timed_call=contextlib.nullcontext) -> dict:
     """The horizon-sharded AL-iLQR step (``__graft_entry__.py:107-131``'s
     ``dryrun_multichip`` step) at ilqr_n40's width: ilqr_n40's OCP, road,
     configurations and first ``batch`` initial states through
     ``build_vehicle_ilqr_controller(mesh=make_horizon_mesh(1, world))``, a
-    closed loop of ``n_warmup`` untimed and ``n_steps`` timed steps. Its
-    first step is held against ilqr_n40's own (unsharded, sequential
-    Riccati) controller on the same lanes."""
+    closed loop of ``n_warmup`` untimed and ``n_steps`` timed steps, each
+    timed one inside ``timed_call()``. Its first step is held against
+    ilqr_n40's own (unsharded, sequential Riccati) controller on the same
+    lanes."""
     w = _world()
     loop = ClosedLoop(ILQR_N40)
     ys, carry = loop.start(cell.batch)
@@ -905,11 +917,13 @@ def run_mesh_ilqr(cell: MeshCell = MESH_ILQR) -> dict:
                                      loop.device)
     outs, times = [], []
     for k in range(cell.n_warmup + cell.n_steps):
-        t0 = time.perf_counter()
-        ys, carry, out = loop.step(ys, carry)
-        torch.cuda.synchronize()
-        if k >= cell.n_warmup:
-            times.append(time.perf_counter() - t0)
+        is_timed = k >= cell.n_warmup
+        with timed_call() if is_timed else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            ys, carry, out = loop.step(ys, carry)
+            torch.cuda.synchronize()
+            if is_timed:
+                times.append(time.perf_counter() - t0)
         outs.append(out.result)
     first = outs[0]
     timed = outs[cell.n_warmup:]
@@ -937,10 +951,17 @@ def run_mesh_ilqr(cell: MeshCell = MESH_ILQR) -> dict:
             "states_finite": bool(torch.isfinite(ys).all())}
 
 
+#: the sharded cells' runners, by name
+MESH_RUNNERS = {"mesh_dp": run_mesh_dp, "mesh_lqt": run_mesh_lqt,
+                "mesh_ilqr": run_mesh_ilqr}
+
+
 @torch.no_grad()
-def run(cell: Cell = HEADLINE) -> dict:
+def run(cell: Cell = HEADLINE, device=None) -> dict:
     """Run the cell's closed loop at its batch (and its batch-1 loop, where
-    it has one) on the card; return the measurements."""
+    it has one) on the card; return the measurements. ``device`` names
+    another device for a closed-loop cell (``Cell``) without a batch-1
+    loop, so that a caller can run it on the CPU at a small size."""
     if isinstance(cell, SuiteCell):
         return run_suite(cell)
     if isinstance(cell, TwoCarCell):
@@ -948,10 +969,15 @@ def run(cell: Cell = HEADLINE) -> dict:
     if isinstance(cell, ChainCell):
         return run_chain(cell)
     if isinstance(cell, MeshCell):
-        return {"mesh_dp": run_mesh_dp, "mesh_lqt": run_mesh_lqt,
-                "mesh_ilqr": run_mesh_ilqr}[cell.name](cell)
-    loop = ClosedLoop(cell)
-    sync = torch.cuda.synchronize
+        return MESH_RUNNERS[cell.name](cell)
+    loop = ClosedLoop(cell, device)
+    if loop.device.type == "cuda":
+        sync = torch.cuda.synchronize
+    elif cell.batch1_steps is None:
+        def sync():
+            pass
+    else:
+        raise ValueError("a batch-1 loop is timed on the card only")
     iters_run = []          # per step: the slowest lane's inner iterations
 
     def step(ys, carry):

@@ -1,5 +1,8 @@
-"""The port's runnable demos, the counterparts of the repository's
-``examples/{vehicle_mpc,hanging_chain,lane_change_game,scenario_suite}.py``:
+"""The port's runnable demos and measurement scripts, the counterparts of
+the repository's
+``examples/{vehicle_mpc,hanging_chain,lane_change_game,scenario_suite}.py``
+and ``examples/{profile_config2_phases,exp_mfu,profile_config2,
+exp_shift_warm}.py``:
 
     python -m mpc_tpu_torch.examples.<name> [options] [--device D]
 

@@ -2,7 +2,7 @@
 fan kernel's share of it, device kernels per step, and the device's idle
 share. Same controllers, roads and initial states as ``mpc_tpu_torch.bench``.
 
-    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain]
+    python -m mpc_tpu_torch.profile_step [headline|config1|ss_n40|ilqr_n40|etc|config5|config4|ms_n40_m8|config5_obs|chain|mesh_dp|mesh_lqt|mesh_ilqr]
 
 For the cell's batch (and its batch-1 loop's, where it has one): the cell's
 warm-up steps, then 3 steps (1 for ss_n40, whose step runs some 1,500
@@ -22,7 +22,14 @@ PANOC iteration over hundreds of iterations a step, are profiled over one
 controller step at the cell's batch with one outer iteration of at most
 ``CAPPED_ITERS`` PANOC iterations (config5_obs: its cheap tier over all
 lanes), from the cell's start: the kernels per iteration and the idle
-share of an iteration.
+share of an iteration. The sharded cells (mesh_dp, mesh_lqt, mesh_ilqr)
+are profiled over one warm call of the cell's runner (``MESH_RUNNERS``:
+one sharded solve, one LQT solve, one closed-loop step) after one warm-up
+call, over a world of one rank in this process: the runner's own host
+clock gives the call's wall, and ``torch.profiler`` around that call alone
+(the card's activity only, no trace file: a mesh_ilqr step launches some
+390,000 kernels) its device-busy time and kernels, the sum of the device
+events' times over one stream.
 The first time they are timed on the host clock, with a synchronise after
 each and no profiler. The second time they run under ``torch.profiler``.
 They are deterministic, so both runs do the same work; the script checks
@@ -37,6 +44,7 @@ Prints one JSON line per batch, then the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,9 +54,10 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mpc_tpu_torch.bench import (CELLS, ChainCell, ClosedLoop, StepRecord,
-                                 SuiteCell, TwoCarCell, chain_setup,
-                                 gpu_info, suite_setup, two_car_setup)
+from mpc_tpu_torch.bench import (CELLS, MESH_RUNNERS, ChainCell, ClosedLoop,
+                                 MeshCell, StepRecord, SuiteCell, TwoCarCell,
+                                 chain_setup, gpu_info, suite_setup,
+                                 two_car_setup)
 from mpc_tpu_torch.config import IlqrConfig
 from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
 
@@ -124,6 +133,26 @@ def _profile(work, name: str, batch: int):
     path = os.path.join(OUT_DIR, f"trace_{name}_batch{batch}.json")
     prof.export_chrome_trace(path)
     return walls, iters, prof_walls, _device_intervals(path), path
+
+
+def device_time(prof) -> tuple:
+    """``(device-busy ms, device kernels)`` of a finished ``torch.profiler``
+    run, read from its raw events (building its averages takes seconds a
+    100,000 events): the device events' summed time (on one stream they do
+    not overlap) and the kernels among them (not the copies and sets).
+    Raises if the run holds no kernel."""
+    from torch.autograd import DeviceType
+    busy_ns, kernels = 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        busy_ns += ev.duration_ns()
+        if not ev.name().startswith(("Memcpy", "Memset")):
+            kernels += 1
+    if not kernels:
+        raise RuntimeError("the profiler saw no device kernel: device time "
+                           "not measured")
+    return busy_ns / 1e6, kernels
 
 
 def _summary(name, batch, unit, walls, iters, prof_walls, dev, path,
@@ -348,6 +377,73 @@ def profile_unfused(cell) -> dict:
     return r
 
 
+#: what each sharded cell's runner reports of its timed call: the work
+#: that must be the same in the plain and the profiled run
+MESH_WORK = {"mesh_dp": "inner_iterations_run", "mesh_lqt": None,
+             "mesh_ilqr": "inner_iters_mean"}
+
+
+@torch.no_grad()
+def profile_mesh(cell: MeshCell) -> dict:
+    """A sharded cell: its runner (``MESH_RUNNERS``) with one warm-up
+    and one timed call, twice: plain, and with ``torch.profiler`` around the
+    timed call alone. Wall from the plain run's timed call, busy and
+    kernels from the profiled one's; RuntimeError if the two did other
+    work."""
+    import torch.distributed as dist
+    runner = MESH_RUNNERS[cell.name]
+    one = dataclasses.replace(cell, n_warmup=1, n_steps=1)
+    measured = {}
+
+    @contextlib.contextmanager
+    def profiled():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+        measured["busy_ms"], measured["kernels"] = device_time(prof)
+
+    plain = runner(one)
+    traced = runner(one, timed_call=profiled)
+    key = MESH_WORK[cell.name]
+    if key is not None and plain[key] != traced[key]:
+        raise RuntimeError(f"the profiled call did other work than the "
+                           f"timed one: {key} {traced[key]} vs {plain[key]}")
+    wall_ms = plain["times_s"][0] * 1e3
+    r = {"cell": cell.name, "batch": cell.batch, "n_horiz": cell.n_horiz,
+         "unit": {"mesh_dp": "one sharded solve", "mesh_lqt": "one LQT solve",
+                  "mesh_ilqr": "one closed-loop step"}[cell.name],
+         "world": plain["world"], "backend": plain["backend"],
+         "mesh": plain["mesh"], "wall_ms": wall_ms,
+         "wall_ms_under_profiler": traced["times_s"][0] * 1e3,
+         "device_busy_ms": measured["busy_ms"],
+         "idle_share": 1.0 - measured["busy_ms"] / wall_ms,
+         "device_kernels": measured["kernels"]}
+    if key is not None:
+        r[key] = plain[key]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return r
+
+
+@torch.no_grad()
+def profile_closed_loop(cell) -> list:
+    """A fused or AL-iLQR cell: ``profile_batch`` at its batch and, where
+    it has a batch-1 loop, at batch 1."""
+    loop = ClosedLoop(cell)
+    batches = (cell.batch,) if cell.batch1_steps is None else (cell.batch, 1)
+    return [profile_batch(loop, batch) for batch in batches]
+
+
+def profiler(cell):
+    """The profile of a cell: ``fn(cell) -> dict or list of dicts``."""
+    if cell.name in UNFUSED:
+        return profile_unfused
+    for kind, fn in ((SuiteCell, profile_suite), (TwoCarCell, profile_two_car),
+                     (MeshCell, profile_mesh)):
+        if isinstance(cell, kind):
+            return fn
+    return profile_closed_loop
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     name = argv[0] if argv else "headline"
@@ -356,25 +452,8 @@ def main(argv=None):
                          f"[{'|'.join(CELLS)}]")
     info = gpu_info()
     cell = CELLS[name]
-    if name in UNFUSED:
-        r = dict(profile_unfused(cell), device=info["name"],
-                 power_limit=info["power_limit"])
-        print(json.dumps({"profile": r}), flush=True)
-        print(info["nvidia_smi"])
-        return
-    if isinstance(cell, (SuiteCell, TwoCarCell)):
-        r = profile_suite(cell) if isinstance(cell, SuiteCell) \
-            else profile_two_car(cell)
-        r["device"] = info["name"]
-        r["power_limit"] = info["power_limit"]
-        print(json.dumps({"profile": r}), flush=True)
-        print(info["nvidia_smi"])
-        return
-    loop = ClosedLoop(cell)
-    batches = (loop.cell.batch,) if loop.cell.batch1_steps is None \
-        else (loop.cell.batch, 1)
-    for batch in batches:
-        r = profile_batch(loop, batch)
+    out = profiler(cell)(cell)
+    for r in out if isinstance(out, list) else [out]:
         r["device"] = info["name"]
         r["power_limit"] = info["power_limit"]
         print(json.dumps({"profile": r}), flush=True)

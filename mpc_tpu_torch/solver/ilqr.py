@@ -70,6 +70,25 @@ class IlqrResult(NamedTuple):
     trace: Any = None         # IlqrTrace when cfg.trace
 
 
+class IlqrPhases(NamedTuple):
+    """The phases of one inner iteration on the lanes of one ``prepare``,
+    each callable alone; ``iterate(st)`` is ``where(cond(st), accept(st,
+    gnorm, *forward(st.xs, st.us, Ks, kos)), st)`` with ``Ks, kos, gnorm =
+    lqt_solve(derivatives(st.xs, st.us), st.reg)``."""
+    #: ``us (B, N, m) -> (xs (B, N+1, n), cost (B,))``: the clamped rollout
+    rollout: Callable
+    #: ``(xs, us) -> (A, B, Q, q, R, r, P)``, each (B, N, ...)
+    derivatives: Callable
+    #: ``(derivatives' output, reg (B,), parallel=None) -> (Ks, kos,
+    #: max|ko|)``: the Riccati backward pass
+    lqt_solve: Callable
+    #: ``(xs, us, Ks, kos) -> (xs (B, a, N+1, n), us (B, a, N, m), cost
+    #: (B, a))``: the closed-loop rollout under each of the a step sizes
+    forward: Callable
+    #: ``(st, max|ko|, *forward's output) -> state``: the step size's pick
+    accept: Callable
+
+
 class _State(NamedTuple):
     us: torch.Tensor          # (B, N, m)
     xs: torch.Tensor          # (B, N+1, n)
@@ -126,7 +145,8 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
     ``(state, iterate, cond, result)``: the solve's initial state, one
     masked iteration, the per-lane loop condition and the state's
     ``IlqrResult``; ``solve`` is the loop ``while cond(state).any(): state =
-    iterate(state)``.
+    iterate(state)``. ``iterate.phases`` is the iteration's
+    :class:`IlqrPhases`, each callable alone.
 
     The horizon-sharded solver (``parallel/ilqr_sharded.py``) passes its
     backward pass as ``lqt``, the LQT solve of :mod:`solver.lqr`'s
@@ -258,13 +278,19 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
                 out = (A, Bm, lxx, lx, luu, lu, lux)
             return tuple(t.reshape(Bsz, N, *t.shape[1:]) for t in out)
 
-        def backward(xs, us, reg):
-            A, Bm, Q, q, R, r, Pc = derivatives(xs, us)
+        def lqt_solve(derivs, reg, parallel=None):
+            """The LQT solve of the linearised problem from
+            ``derivatives``' output: ``(Ks, kos, max|ko|)``. ``parallel``
+            None is the solver's own solve; True or False the parallel or
+            the sequential Riccati of solver/lqr.py."""
+            A, Bm, Q, q, R, r, Pc = derivs
             Rr = R + reg[:, None, None, None] * torch.eye(
                 m, dtype=dtype, device=device)
             zn = torch.zeros((Bsz, n), dtype=dtype, device=device)
-            sol = lqt(zn, A, Bm, torch.zeros_like(q), Q, q, Rr, r,
-                      torch.zeros_like(Q[:, 0]), zn, P=Pc)
+            solve_lqt = lqt if parallel is None else \
+                lqt_solve_parallel if parallel else lqt_solve_sequential
+            sol = solve_lqt(zn, A, Bm, torch.zeros_like(q), Q, q, Rr, r,
+                            torch.zeros_like(Q[:, 0]), zn, P=Pc)
             # deviation-space policy du = -Ko dx - ko; max|ko| is the
             # stationarity proxy
             return sol.Ko, sol.ko, sol.ko.abs().amax(dim=(1, 2))
@@ -312,9 +338,9 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
             return (~st.converged) & (st.iters < cfg.max_iter) \
                 & (st.reg < cfg.reg_max)
 
-        def body(st: _State) -> _State:
-            Ks, kos, gnorm = backward(st.xs, st.us, st.reg)
-            xs_f, us_f, costs = forward(st.xs, st.us, Ks, kos)
+        def accept(st: _State, gnorm, xs_f, us_f, costs) -> _State:
+            """The line search's pick, the regularisation update and the
+            exit tests: the state after the iteration, on every lane."""
             costs = torch.where(torch.isnan(costs),
                                 torch.full_like(costs, float("inf")), costs)
             best = torch.argmin(costs, dim=1)     # the first minimum
@@ -347,8 +373,15 @@ def make_ilqr_solver(f_d: Callable, stage_cost: Callable, n_horiz: int,
                         torch.full_like(c_best, float("nan"))))))
             return st_new._replace(iters=st.iters + 1)
 
+        def body(st: _State) -> _State:
+            Ks, kos, gnorm = lqt_solve(derivatives(st.xs, st.us), st.reg)
+            return accept(st, gnorm, *forward(st.xs, st.us, Ks, kos))
+
         def iterate(st: _State) -> _State:
             return _where(cond(st), body(st), st)
+
+        iterate.phases = IlqrPhases(rollout, derivatives, lqt_solve, forward,
+                                    accept)
 
         def result(st: _State) -> IlqrResult:
             return IlqrResult(us=st.us.reshape(Bsz, N * m), xs=st.xs,

@@ -5,10 +5,13 @@ JAX package: ``VehicleParams.from_vector`` and ``ChainParams.from_vector``
 1e-6 absolute), the dimension constants, ``H_LANE``, the
 batched aliases (the port is batch-native, so each is the function
 itself), ``native_available`` and the records store ``utils/perfdb.py``,
-which writes only its own files. Also: every new entry point runs on the
-card by default and raises without one.
+which writes only its own files; the package's top-level names, those of
+``mpc_tpu/__init__.py``, with the same fields. Also: every new entry point
+runs on the card by default and raises without one.
 """
 
+import dataclasses
+import inspect
 import json
 import os
 
@@ -174,8 +177,28 @@ def test_perfdb_round_trip_writes_only_its_own_files(tmp_path,
     assert perfdb.device_label("cpu") == "cpu"
 
 
+def test_top_level_names_match_jax():
+    import mpc_tpu
+    import mpc_tpu_torch
+
+    def names(mod):
+        return {k for k, v in vars(mod).items()
+                if not k.startswith("_") and not inspect.ismodule(v)}
+
+    assert names(mpc_tpu_torch) == names(mpc_tpu) == {
+        "AlmConfig", "MpcConfig", "PanocConfig", "ChainParams",
+        "VehicleParams"}
+    for k in names(mpc_tpu):
+        ours, ref = getattr(mpc_tpu_torch, k), getattr(mpc_tpu, k)
+        assert ours.__module__.startswith("mpc_tpu_torch."), k
+        assert [f.name for f in dataclasses.fields(ours)] \
+            == [f.name for f in dataclasses.fields(ref)], k
+
+
 @pytest.mark.parametrize("name", ["vehicle_mpc", "hanging_chain",
                                   "lane_change_game", "scenario_suite",
+                                  "profile_config2_phases", "exp_mfu",
+                                  "profile_config2", "exp_shift_warm",
                                   "entry"])
 def test_entry_points_run_on_the_card_by_default(name):
     import importlib
