@@ -33,6 +33,7 @@ from mpc_tpu_torch.solver.ilqr import make_al_ilqr_solver
 from mpc_tpu_torch.solver.multiple_shooting import (build_ms_ocp_problem,
                                                     ms_warm_start)
 from mpc_tpu_torch.solver.problem import Box, Problem, build_ocp_problem
+from mpc_tpu_torch.utils.timing import span
 
 # Quadratic state-constraint offsets: y_i^2 - b_i per stage
 STATE_CONSTRAINT_OFFSETS = (20.0, 1.0, 1.0, 2.0, 1.0, 0.1)
@@ -120,6 +121,10 @@ class MpcController(nn.Module):
 
     def step(self, carry: MpcCarry, param: Any) -> MpcStepOut:
         """One warm-started MPC solve per lane (mpc_tpu/control/mpc.py:101-129)."""
+        with span("mpc.step"):
+            return self._step(carry, param)
+
+    def _step(self, carry: MpcCarry, param: Any) -> MpcStepOut:
         U0 = carry.U
         if self.warm_prep is not None:
             U0 = self.warm_prep(U0, param, (carry.sigma <= 0).all(dim=1))

@@ -40,6 +40,14 @@ same work in the same process.
 Busy is the union of the device intervals (kernels, copies, sets) in the
 profiler's trace. The trace is written to ``build/profile/`` in the checkout.
 Prints one JSON line per batch, then the card's name and power limit.
+
+For the closed-loop cells with a fan (headline, config1, ss_n40, etc) the
+line also puts the profiled steps' device idle gaps and kernels down to the
+program's spans (``utils/timing.py:span_breakdown``): ``idle_by_span_s``,
+each gap's seconds under the innermost span open when the host issued the
+work that ended it, and ``kernels_per_trip_by_span``, each span's kernels
+per masked PANOC trip; ``(outside the controller)`` is the plant and the
+loop, ``(unattributed)`` kernels whose launch the trace lacks.
 """
 
 from __future__ import annotations
@@ -60,13 +68,14 @@ from mpc_tpu_torch.bench import (CELLS, MESH_RUNNERS, ChainCell, ClosedLoop,
                                  two_car_setup)
 from mpc_tpu_torch.config import IlqrConfig
 from mpc_tpu_torch.sim.scenarios import run_scenario_suite_two_tier
+from mpc_tpu_torch.utils.timing import (UNATTRIBUTED, profiler_events,
+                                        span_breakdown)
 
 N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1, "ilqr_n40": 2,
               "etc": 12, "config5": 3, "config4": 3}
 UNFUSED = ("ms_n40_m8", "config5_obs", "chain")
 CAPPED_ITERS = 4      # one chunk of masked PANOC iterations
 FAN_KERNEL = "fused_psi_fan"   # K1-K3: instances of fused_psi_fan_phased
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_DIR = os.path.join(ROOT, "build", "profile")
 
@@ -75,9 +84,10 @@ def _clone(ys, carry):
     return ys.clone(), type(carry)(*(t.clone() for t in carry))
 
 
-def _run_steps(loop, ys, carry):
+def _run_steps(loop, ys, carry, trips=None):
     """The cell's profiled steps; per step the wall time (s) and the slowest
-    lane's iteration count."""
+    lane's iteration count. ``trips``, a list, gets each step's masked
+    PANOC trips (``SolveStats.trips``)."""
     walls, iters = [], []
     for _ in range(N_PROFILED[loop.cell.name]):
         t0 = time.perf_counter()
@@ -85,6 +95,8 @@ def _run_steps(loop, ys, carry):
         iters.append(int(out.result.inner_iterations.max()))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        if trips is not None:
+            trips.append(out.result.stats.trips)
     return walls, iters
 
 
@@ -100,28 +112,11 @@ def _run_inner_iterations(iterate, st):
     return walls, [1] * len(walls)
 
 
-def _device_intervals(trace_path):
-    with open(trace_path) as fh:
-        events = json.load(fh)["traceEvents"]
-    return [(e["ts"], e["ts"] + e["dur"], e["cat"], e["name"])
-            for e in events
-            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-
-
-def _union_us(intervals):
-    total, end = 0.0, float("-inf")
-    for a, b in sorted((a, b) for a, b, _, _ in intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
 def _profile(work, name: str, batch: int):
     """``work() -> (walls, iters)``, run once on the host clock and once
     under the profiler: ``(walls, iters, walls under the profiler, the
-    trace's device intervals, the trace's path)``; RuntimeError if the two
-    runs did other work."""
+    trace's events as ``utils.timing.profiler_events`` reads them, the
+    trace's path)``; RuntimeError if the two runs did other work."""
     walls, iters = work()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -132,7 +127,7 @@ def _profile(work, name: str, batch: int):
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"trace_{name}_batch{batch}.json")
     prof.export_chrome_trace(path)
-    return walls, iters, prof_walls, _device_intervals(path), path
+    return walls, iters, prof_walls, profiler_events(prof), path
 
 
 def device_time(prof) -> tuple:
@@ -155,16 +150,23 @@ def device_time(prof) -> tuple:
     return busy_ns / 1e6, kernels
 
 
-def _summary(name, batch, unit, walls, iters, prof_walls, dev, path,
-             has_fan=True) -> dict:
-    kernels = [iv for iv in dev if iv[2] == "kernel"]
+def _summary(name, batch, unit, walls, iters, prof_walls, events, path,
+             has_fan=True, trips=None) -> dict:
+    """The line of a profiled run from ``_profile``'s results; with
+    ``trips``, the masked PANOC trips of the profiled steps, also the
+    idle and kernels by span (``_by_span``). Returns the line and the fan
+    kernels' device intervals (ns), in order."""
+    dev = events[0]
+    kernels = [iv for iv in dev
+               if not iv[3].startswith(("Memcpy", "Memset"))]
     fan = [iv for iv in kernels if FAN_KERNEL in iv[3]]
     if not kernels or has_fan != bool(fan):
         raise RuntimeError(f"the profiler's trace holds {len(kernels)} "
                            f"device kernels, {len(fan)} of them the fan "
                            f"kernel, on a path {'with' if has_fan else 'without'}"
                            f" one")
-    busy_ms = _union_us(dev) / 1e3
+    spans = span_breakdown(*events)
+    busy_ms = spans["busy_s"] * 1e3
     wall_ms = sum(walls) * 1e3
     r = {
         "cell": name, "batch": batch, "unit": unit,
@@ -176,11 +178,13 @@ def _summary(name, batch, unit, walls, iters, prof_walls, dev, path,
         "trace": os.path.relpath(path, ROOT),
     }
     if has_fan:
-        fan_ms = sum(b - a for a, b, _, _ in fan) / 1e3
+        fan_ms = sum(b - a for a, b, _, _ in fan) / 1e6
         r.update({
             "fan_kernel_ms": fan_ms, "fan_share_of_busy": fan_ms / busy_ms,
             "fan_kernels_in_trace": len(fan),
             "fan_us_per_launch": fan_ms * 1e3 / len(fan)})
+    if trips is not None:
+        r.update(_by_span(spans, trips))
     return r, sorted(fan)
 
 
@@ -221,10 +225,10 @@ def profile_suite(cell: SuiteCell) -> dict:
             k += m
         return [wall / n] * n, per_step
 
-    walls, iters, prof_walls, dev, path = _profile(work, cell.name,
-                                                   cell.batch)
+    walls, iters, prof_walls, events, path = _profile(work, cell.name,
+                                                      cell.batch)
     r, fan = _summary(cell.name, cell.batch, "step", walls, iters,
-                      prof_walls, dev, path)
+                      prof_walls, events, path)
     st, tiers, launches = stats[-1]
     # the fan kernels run in launch order on one stream: each step's cheap
     # tier's launches, then its straggler tier's
@@ -232,7 +236,7 @@ def profile_suite(cell: SuiteCell) -> dict:
     k = 0
     for nc, ns in zip(tiers["cheap"], tiers["straggler"]):
         for tier, cnt in (("cheap", nc), ("straggler", ns)):
-            tier_ms[tier] += sum(b - a for a, b, _, _ in fan[k:k + cnt]) / 1e3
+            tier_ms[tier] += sum(b - a for a, b, _, _ in fan[k:k + cnt]) / 1e6
             k += cnt
     if k != len(fan) or launches != len(fan):
         raise RuntimeError(f"{len(fan)} fan kernels in the trace, "
@@ -276,10 +280,10 @@ def profile_two_car(cell: TwoCarCell) -> dict:
         return [wall / n] * n, [int(x)
                                 for x in torch.stack(record.iters).cpu()]
 
-    walls, iters, prof_walls, dev, path = _profile(work, cell.name,
-                                                   cell.pairs)
+    walls, iters, prof_walls, events, path = _profile(work, cell.name,
+                                                      cell.pairs)
     r, _ = _summary(cell.name, cell.pairs, "step (2 x pairs lanes)", walls,
-                    iters, prof_walls, dev, path)
+                    iters, prof_walls, events, path)
     r["wall_ms_note"] = "the loop's wall over its steps"
     r["fan_launches"] = launches[-1]
     return r
@@ -296,9 +300,11 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
     torch.cuda.synchronize()
 
     has_fan = not isinstance(loop.cell.solver_cfg, IlqrConfig)
+    trips = []
     if has_fan:
         def work():
-            return _run_steps(loop, *_clone(ys, carry))
+            trips.clear()
+            return _run_steps(loop, *_clone(ys, carry), trips)
     else:
         # the inner problem of the next step's first outer iteration: the
         # warm carry's multipliers and penalties (cold lanes at sigma_0)
@@ -313,16 +319,29 @@ def profile_batch(loop: ClosedLoop, batch: int) -> dict:
             return _run_inner_iterations(iterate, st)
 
     launches0 = sum(w.launches for w in wrappers)
-    walls, iters, prof_walls, dev, path = _profile(work, loop.cell.name,
-                                                   batch)
+    walls, iters, prof_walls, events, path = _profile(
+        work, loop.cell.name, batch)
     # the profiled run's launches: half of the two runs'
     launches = (sum(w.launches for w in wrappers) - launches0) // 2
     r, _ = _summary(loop.cell.name, batch,
                     "step" if has_fan else "inner iteration", walls, iters,
-                    prof_walls, dev, path, has_fan)
+                    prof_walls, events, path, has_fan,
+                    sum(trips) if has_fan else None)
     if has_fan:
         r["fan_launches"] = launches
     return r
+
+
+def _by_span(spans: dict, trips: int) -> dict:
+    """The profiled steps' device idle (s) and kernels per masked PANOC
+    trip by the program span that issued them (``utils.timing``)."""
+    return {
+        "idle_by_span_s": spans["idle_s"],
+        "kernels_per_trip_by_span": {k: n / trips
+                                     for k, n in spans["kernels"].items()},
+        "trips": trips,
+        "unattributed_kernels": spans["kernels"].get(UNATTRIBUTED, 0),
+        "idle_gaps_dated_by_device": spans["gaps_dated_by_device"]}
 
 
 @torch.no_grad()
@@ -370,10 +389,10 @@ def profile_unfused(cell) -> dict:
         return [time.perf_counter() - t0], \
             [int(out.result.inner_iterations.max())]
 
-    walls, iters, prof_walls, dev, path = _profile(work, cell.name, batch)
+    walls, iters, prof_walls, events, path = _profile(work, cell.name, batch)
     r, _ = _summary(cell.name, batch,
                     f"one step capped at {CAPPED_ITERS} PANOC iterations",
-                    walls, iters, prof_walls, dev, path, has_fan=False)
+                    walls, iters, prof_walls, events, path, has_fan=False)
     return r
 
 

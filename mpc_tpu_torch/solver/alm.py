@@ -26,14 +26,16 @@ discards.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+import time
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from mpc_tpu_torch.config import AlmConfig, PanocConfig
-from mpc_tpu_torch.solver.panoc import (PanocTrace, _where, any_lane,
-                                        make_panoc_solver)
+from mpc_tpu_torch.solver.panoc import (PanocTrace, SolveStats, _where,
+                                        any_lane, make_panoc_solver)
 from mpc_tpu_torch.solver.problem import Problem, project, value_and_grad
+from mpc_tpu_torch.utils.timing import span
 
 
 class AlmTrace(NamedTuple):
@@ -59,6 +61,7 @@ class AlmResult(NamedTuple):
     gamma: torch.Tensor                       # (B,) warm-start carry
     trace: Any = None                         # AlmTrace when alm_cfg.trace
     inner_trace: Any = None                   # PanocTrace of the last solve
+    stats: Optional[SolveStats] = None        # trips, waits of every solve
 
 
 class _OuterState(NamedTuple):
@@ -102,6 +105,10 @@ def _make_fast_path(problem, alm_cfg, panoc_cfg, group):
                               psi_vg_multi=problem.cost_multi, group=group)
 
     def solve(param, u0, lam0, tol=None, sigma0=None, gamma0=None):
+        with span("alm.solve"):
+            return _solve(param, u0, lam0, tol, sigma0, gamma0)
+
+    def _solve(param, u0, lam0, tol, sigma0, gamma0):
         # ``tol`` overrides the configured tolerance per call; +inf makes a
         # lane converge at iteration 0.
         if tol is None:
@@ -120,7 +127,8 @@ def _make_fast_path(problem, alm_cfg, panoc_cfg, group):
             constraint_violation=torch.zeros((B,), dtype=u0.dtype,
                                              device=u0.device),
             inner_convergence_failures=(~res.converged).to(torch.int32),
-            sigma=sigma, gamma=res.gamma, inner_trace=res.trace)
+            sigma=sigma, gamma=res.gamma, inner_trace=res.trace,
+            stats=res.stats)
 
     solve.fan_graph = panoc.fan_graph
     return solve
@@ -167,6 +175,11 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
                          f"entries, got shape {tuple(sigma_0.shape)}")
 
     def solve(param, u0, lam0, tol=None, sigma0=None, gamma0=None):
+        with span("alm.solve"):
+            return _solve(param, u0, lam0, tol, sigma0, gamma0)
+
+    def _solve(param, u0, lam0, tol, sigma0, gamma0):
+        t_entry = time.perf_counter()
         dtype, device = u0.dtype, u0.device
         B = u0.shape[0]
         if problem.param_prep is not None:
@@ -220,7 +233,9 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
         def cond(st):
             return (~st.converged) & (st.outer < alm_cfg.max_iter)
 
-        while any_lane(active := cond(st), group):
+        def outer(st, active):
+            """One outer iteration on the ``active`` lanes: ``(state,
+            PANOC's stats)``."""
             # lanes that are done converge at once; their result is dropped
             tol_k = torch.where(active, st.eps_k,
                                 torch.full_like(st.eps_k, float("inf")))
@@ -270,7 +285,23 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
                 failures=st.failures + (~res.converged).to(torch.int32),
                 converged=done, violation=viol, trace=tr,
                 inner_trace=res.trace if panoc_cfg.trace else None)
-            st = _where(active, st_new, st)
+            return _where(active, st_new, st), res.stats
+
+        # the stats: PANOC's trips and waits summed over the outer
+        # iterations, with the outer loop's own all-lanes-done waits, and
+        # this solve's own host seconds
+        trips, sync_wait_s = 0, 0.0
+        while True:
+            active = cond(st)
+            t0 = time.perf_counter()
+            more = any_lane(active, group)
+            sync_wait_s += time.perf_counter() - t0
+            if not more:
+                break
+            with span("alm.outer"):
+                st, inner = outer(st, active)
+            trips += inner.trips
+            sync_wait_s += inner.sync_wait_s
 
         return AlmResult(
             u=st.u, lam=st.lam, psi=st.psi, converged=st.converged,
@@ -279,7 +310,9 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
             inner_convergence_failures=st.failures,
             sigma=torch.where(skip[:, None], sigma_in, st.sigma),
             gamma=torch.where(skip, gamma_in, st.gamma),
-            trace=st.trace, inner_trace=st.inner_trace)
+            trace=st.trace, inner_trace=st.inner_trace,
+            stats=SolveStats(trips, time.perf_counter() - t_entry,
+                             sync_wait_s))
 
     solve.fan_graph = panoc.fan_graph
     return solve

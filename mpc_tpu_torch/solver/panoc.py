@@ -17,6 +17,7 @@ the trust-region cap ``tr_mult``, the stall and plateau exits and the
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -24,6 +25,7 @@ import torch.distributed as dist
 
 from mpc_tpu_torch.config import PanocConfig
 from mpc_tpu_torch.solver.problem import Box, fold_lanes, project
+from mpc_tpu_torch.utils.timing import span
 
 #: masked iterations run between two all-lanes-done checks (host syncs)
 _CHUNK = 4
@@ -150,6 +152,18 @@ class PanocTrace(NamedTuple):
     gamma: torch.Tensor
 
 
+class SolveStats(NamedTuple):
+    """Host counters of one solve, kept whether or not anything traces:
+    ``trips``, the masked iterations the loop ran over the whole batch
+    (``_CHUNK`` a chunk, however few lanes were still active); ``loop_s``,
+    host seconds from the solve's entry to its return; ``sync_wait_s``,
+    host seconds inside the all-lanes-done checks, blocked on the device.
+    """
+    trips: int
+    loop_s: float
+    sync_wait_s: float
+
+
 class PanocResult(NamedTuple):
     u: torch.Tensor           # (B, n)
     psi: torch.Tensor         # (B,)
@@ -158,6 +172,7 @@ class PanocResult(NamedTuple):
     criterion: torch.Tensor   # (B,) final ||r||/gamma (ProjGradNorm2)
     gamma: torch.Tensor       # (B,) final step size, the warm-start carry
     trace: Any = None
+    stats: Optional[SolveStats] = None
 
 
 class _State(NamedTuple):
@@ -309,142 +324,167 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
             & (st.stalled < 3) & (st.plateau < cfg.plateau_iters)
 
     def solve(u0: torch.Tensor, tol, args, gamma_init=None) -> PanocResult:
+        t_entry = time.perf_counter()
         dtype, device = u0.dtype, u0.device
         B = u0.shape[0]
         lanes = torch.arange(B, device=device)
         eps_f = torch.finfo(dtype).eps
         tol = torch.as_tensor(tol, dtype=dtype, device=device)
-        u0 = project(u0, C)
+        with span("panoc.init"):
+            u0 = project(u0, C)
 
-        # Initial step size from a finite-difference Lipschitz estimate;
-        # both points go through the candidate-fan evaluator in one call.
-        h = 1e-4 * (1.0 + torch.abs(u0))
-        psis0, grads0 = cand_vg(torch.stack([u0, u0 + h], dim=1), args)
-        psi0, g0, g_h = psis0[:, 0], grads0[:, 0], grads0[:, 1]
-        L0 = torch.linalg.vector_norm(g_h - g0, dim=-1) / torch.clamp(
-            torch.linalg.vector_norm(h, dim=-1), min=1e-30)
-        L0 = torch.clamp(L0, 1e-8, 1e15)
-        gamma0 = cfg.alpha / L0
-        if gamma_init is not None:
-            gamma_init = gamma_init.to(dtype)
-            g_warm = torch.clamp(gamma_init, min=gamma0 / 64.0, max=gamma0)
-            gamma0 = torch.where(gamma_init > 0, g_warm, gamma0)
+            # Initial step size from a finite-difference Lipschitz
+            # estimate; both points go through the candidate-fan evaluator
+            # in one call.
+            h = 1e-4 * (1.0 + torch.abs(u0))
+            psis0, grads0 = cand_vg(torch.stack([u0, u0 + h], dim=1), args)
+            psi0, g0, g_h = psis0[:, 0], grads0[:, 0], grads0[:, 1]
+            L0 = torch.linalg.vector_norm(g_h - g0, dim=-1) / torch.clamp(
+                torch.linalg.vector_norm(h, dim=-1), min=1e-30)
+            L0 = torch.clamp(L0, 1e-8, 1e15)
+            gamma0 = cfg.alpha / L0
+            if gamma_init is not None:
+                gamma_init = gamma_init.to(dtype)
+                g_warm = torch.clamp(gamma_init, min=gamma0 / 64.0,
+                                     max=gamma0)
+                gamma0 = torch.where(gamma_init > 0, g_warm, gamma0)
 
-        tr0 = None
-        if cfg.trace:
-            nanbuf = torch.full((B, cfg.max_iter), float("nan"), dtype=dtype,
-                                device=device)
-            tr0 = PanocTrace(nanbuf, nanbuf.clone(), nanbuf.clone())
-        izero = torch.zeros((B,), dtype=torch.int32, device=device)
-        inf = torch.full((B,), float("inf"), dtype=dtype, device=device)
-        st = _State(
-            u=u0, psi=psi0, grad=g0, gamma=gamma0,
-            lbfgs=lbfgs_init(B, cfg.lbfgs_memory, u0.shape[1], device, dtype),
-            iters=izero, converged=torch.zeros((B,), dtype=torch.bool,
-                                               device=device),
-            criterion=inf, stalled=izero, best_crit=inf, plateau=izero,
-            trace=tr0)
+            tr0 = None
+            if cfg.trace:
+                nanbuf = torch.full((B, cfg.max_iter), float("nan"),
+                                    dtype=dtype, device=device)
+                tr0 = PanocTrace(nanbuf, nanbuf.clone(), nanbuf.clone())
+            izero = torch.zeros((B,), dtype=torch.int32, device=device)
+            inf = torch.full((B,), float("inf"), dtype=dtype, device=device)
+            st = _State(
+                u=u0, psi=psi0, grad=g0, gamma=gamma0,
+                lbfgs=lbfgs_init(B, cfg.lbfgs_memory, u0.shape[1], device,
+                                 dtype),
+                iters=izero, converged=torch.zeros((B,), dtype=torch.bool,
+                                                   device=device),
+                criterion=inf, stalled=izero, best_crit=inf, plateau=izero,
+                trace=tr0)
 
         def body(st: _State) -> _State:
             u, psi_u, g_u, gamma = st.u, st.psi, st.grad, st.gamma
             gc = gamma[:, None]
 
-            fw = u - gc * g_u
-            u_hat = project(fw, C)
-            r = u - u_hat
-            rn2 = _dot(r, r)
-            crit = torch.sqrt(rn2) / gamma
-            conv_now = crit <= tol
+            with span("panoc.direction"):
+                fw = u - gc * g_u
+                u_hat = project(fw, C)
+                r = u - u_hat
+                rn2 = _dot(r, r)
+                crit = torch.sqrt(rn2) / gamma
+                conv_now = crit <= tol
 
-            tr = st.trace
-            if cfg.trace:
-                k = torch.clamp(st.iters.long(), max=cfg.max_iter - 1)
-                bufs = []
-                for buf, val in zip(tr, (psi_u, crit, gamma)):
-                    buf = buf.clone()
-                    buf[lanes, k] = val
-                    bufs.append(buf)
-                tr = PanocTrace(*bufs)
-            if progress_callback is not None:
-                progress_callback(st.iters, psi_u, crit, gamma)
+                tr = st.trace
+                if cfg.trace:
+                    k = torch.clamp(st.iters.long(), max=cfg.max_iter - 1)
+                    bufs = []
+                    for buf, val in zip(tr, (psi_u, crit, gamma)):
+                        buf = buf.clone()
+                        buf[lanes, k] = val
+                        bufs.append(buf)
+                    tr = PanocTrace(*bufs)
+                if progress_callback is not None:
+                    progress_callback(st.iters, psi_u, crit, gamma)
 
-            # Structured step: quasi-Newton only on the free coordinates.
-            free = (fw > C.lower) & (fw < C.upper)
-            fmask = free.to(dtype)
-            d_free = lbfgs_direction(st.lbfgs, r * fmask)
-            # Trust-region cap against noise-poisoned curvature pairs.
-            dn = torch.linalg.vector_norm(d_free, dim=-1)
-            cap = cfg.tr_mult * torch.sqrt(rn2)
-            d_free = d_free * torch.clamp(
-                cap / torch.clamp(dn, min=1e-30), max=1.0)[:, None]
-            d = torch.where(free, d_free, -r)
-            # Candidate fan: x_hat (tau=0) plus the tau grid, one call.
-            cands = torch.stack(
-                [u_hat] + [u - (1.0 - t) * r + t * d for t in taus], dim=1)
-            psis, grads = cand_vg(cands, args)
-            psi_hat = psis[:, 0]
+                # Structured step: quasi-Newton only on the free
+                # coordinates.
+                free = (fw > C.lower) & (fw < C.upper)
+                fmask = free.to(dtype)
+                d_free = lbfgs_direction(st.lbfgs, r * fmask)
+                # Trust-region cap against noise-poisoned curvature pairs.
+                dn = torch.linalg.vector_norm(d_free, dim=-1)
+                cap = cfg.tr_mult * torch.sqrt(rn2)
+                d_free = d_free * torch.clamp(
+                    cap / torch.clamp(dn, min=1e-30), max=1.0)[:, None]
+                d = torch.where(free, d_free, -r)
+            with span("panoc.fan"):
+                # Candidate fan: x_hat (tau=0) plus the tau grid, one call.
+                cands = torch.stack(
+                    [u_hat] + [u - (1.0 - t) * r + t * d for t in taus],
+                    dim=1)
+                psis, grads = cand_vg(cands, args)
+            with span("panoc.accept"):
+                psi_hat = psis[:, 0]
 
-            # Quadratic upper bound with an f32 rounding margin.
-            margin = 10.0 * eps_f * (torch.abs(psi_u) + torch.abs(psi_hat)) \
-                + 1e-12
-            qub_rhs = psi_u - _dot(g_u, r) + rn2 / (2.0 * gamma) + margin
-            gamma_ok = (psi_hat <= qub_rhs) | (gamma <= cfg.gamma_min)
+                # Quadratic upper bound with an f32 rounding margin.
+                margin = 10.0 * eps_f * (torch.abs(psi_u)
+                                         + torch.abs(psi_hat)) + 1e-12
+                qub_rhs = psi_u - _dot(g_u, r) + rn2 / (2.0 * gamma) + margin
+                gamma_ok = (psi_hat <= qub_rhs) | (gamma <= cfg.gamma_min)
 
-            # branch A: halve gamma, flush history, stay put
-            st_shrink = st._replace(gamma=gamma * 0.5,
-                                    lbfgs=lbfgs_flush(st.lbfgs))
+                # branch A: halve gamma, flush history, stay put
+                st_shrink = st._replace(gamma=gamma * 0.5,
+                                        lbfgs=lbfgs_flush(st.lbfgs))
 
-            # branch B: take the best candidate by FBE
-            phis = fbe(cands, psis, grads, gamma)
-            phis = torch.where(torch.isnan(phis),
-                               torch.full_like(phis, float("inf")), phis)
-            best = torch.argmin(phis, dim=1)
-            u_n, psi_n, g_n = cands[lanes, best], psis[lanes, best], \
-                grads[lanes, best]
+                # branch B: take the best candidate by FBE
+                phis = fbe(cands, psis, grads, gamma)
+                phis = torch.where(torch.isnan(phis),
+                                   torch.full_like(phis, float("inf")), phis)
+                best = torch.argmin(phis, dim=1)
+                u_n, psi_n, g_n = cands[lanes, best], psis[lanes, best], \
+                    grads[lanes, best]
 
-            r_n = u_n - project(u_n - gc * g_n, C)
-            min_step = cfg.lbfgs_min_step_mult * eps_f \
-                * (1.0 + torch.linalg.vector_norm(u, dim=-1))
-            lb_n = lbfgs_push(st.lbfgs, (u_n - u) * fmask, (r_n - r) * fmask,
-                              min_step=min_step)
-            moved = (u_n != u).any(dim=-1)
-            st_step = st._replace(
-                u=u_n, psi=psi_n, grad=g_n, lbfgs=lb_n,
-                stalled=torch.where(moved, torch.zeros_like(st.stalled),
-                                    st.stalled + 1))
+                r_n = u_n - project(u_n - gc * g_n, C)
+                min_step = cfg.lbfgs_min_step_mult * eps_f \
+                    * (1.0 + torch.linalg.vector_norm(u, dim=-1))
+                lb_n = lbfgs_push(st.lbfgs, (u_n - u) * fmask,
+                                  (r_n - r) * fmask, min_step=min_step)
+                moved = (u_n != u).any(dim=-1)
+                st_step = st._replace(
+                    u=u_n, psi=psi_n, grad=g_n, lbfgs=lb_n,
+                    stalled=torch.where(moved, torch.zeros_like(st.stalled),
+                                        st.stalled + 1))
 
-            improved = crit < st.best_crit * 0.999
-            st_new = _where(gamma_ok, st_step, st_shrink)
-            st_new = st_new._replace(
-                iters=st.iters + 1,
-                criterion=torch.minimum(st.criterion, crit),
-                best_crit=torch.minimum(st.best_crit, crit),
-                plateau=torch.where(improved, torch.zeros_like(st.plateau),
-                                    st.plateau + 1),
-                trace=tr)
-            # a lane that converges now is frozen with its criterion
-            st_done = st._replace(converged=torch.ones_like(st.converged),
-                                  criterion=crit, trace=tr)
-            return _where(conv_now, st_done, st_new)
+                improved = crit < st.best_crit * 0.999
+                st_new = _where(gamma_ok, st_step, st_shrink)
+                st_new = st_new._replace(
+                    iters=st.iters + 1,
+                    criterion=torch.minimum(st.criterion, crit),
+                    best_crit=torch.minimum(st.best_crit, crit),
+                    plateau=torch.where(improved,
+                                        torch.zeros_like(st.plateau),
+                                        st.plateau + 1),
+                    trace=tr)
+                # a lane that converges now is frozen with its criterion
+                st_done = st._replace(converged=torch.ones_like(st.converged),
+                                      criterion=crit, trace=tr)
+                return _where(conv_now, st_done, st_new)
 
-        while any_lane(cond(st), group):
-            for _ in range(_CHUNK):
-                active = cond(st)
-                st = _where(active, body(st), st)
+        # the host counts the trips (never ``body``) and times the checks
+        trips, sync_wait_s = 0, 0.0
+        while True:
+            active = cond(st)
+            t0 = time.perf_counter()
+            with span("panoc.sync"):
+                more = any_lane(active, group)
+            sync_wait_s += time.perf_counter() - t0
+            if not more:
+                break
+            with span("panoc.chunk"):
+                for _ in range(_CHUNK):
+                    active = cond(st)
+                    st = _where(active, body(st), st)
+            trips += _CHUNK
 
         # Final criterion refresh (covers the max_iter/stagnation exits) and
         # the f32-aware stagnation acceptance (mpc_tpu/solver/panoc.py:341-356).
-        u_hat = project(st.u - st.gamma[:, None] * st.grad, C)
-        crit = torch.linalg.vector_norm(st.u - u_hat, dim=-1) / st.gamma
-        floor = cfg.crit_floor_mult * eps_f \
-            * (1.0 + torch.linalg.vector_norm(st.u, dim=-1)) / st.gamma
-        exhausted = (st.stalled >= 3) | (st.plateau >= cfg.plateau_iters)
-        at_floor = exhausted & (crit <= floor)
+        with span("panoc.final"):
+            u_hat = project(st.u - st.gamma[:, None] * st.grad, C)
+            crit = torch.linalg.vector_norm(st.u - u_hat, dim=-1) / st.gamma
+            floor = cfg.crit_floor_mult * eps_f \
+                * (1.0 + torch.linalg.vector_norm(st.u, dim=-1)) / st.gamma
+            exhausted = (st.stalled >= 3) | (st.plateau >= cfg.plateau_iters)
+            at_floor = exhausted & (crit <= floor)
+            converged = st.converged | (crit <= tol) | at_floor
         return PanocResult(
-            u=st.u, psi=st.psi,
-            converged=st.converged | (crit <= tol) | at_floor,
+            u=st.u, psi=st.psi, converged=converged,
             iterations=st.iters, criterion=crit, gamma=st.gamma,
-            trace=st.trace)
+            trace=st.trace,
+            stats=SolveStats(trips, time.perf_counter() - t_entry,
+                             sync_wait_s))
 
     solve.fan_graph = fan_graph
     return solve

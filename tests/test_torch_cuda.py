@@ -536,6 +536,62 @@ def test_suite_step_on_card_matches_cpu(cuda):
                                rtol=0, atol=5e-3)
 
 
+@pytest.mark.cuda
+def test_step_spans_own_the_idle_gaps_and_fan_kernels(cuda):
+    # Two warm controller steps at B = 1024 on K1 under torch.profiler:
+    # span_breakdown gives every device idle gap to a span of the program
+    # (or to the host outside it) and every K1 launch to PANOC's fan or its
+    # start-up, or counts it as unattributed where the trace lacks it.
+    from mpc_tpu_torch.utils import timing
+    B, n_horiz = 1024, 12
+    ctrl = build_vehicle_controller(
+        n_horiz=n_horiz, alm_cfg=AlmConfig(eps=1e-4),
+        panoc_cfg=PanocConfig(lbfgs_memory=n_horiz, max_iter=300),
+        device=cuda)
+    rng = np.random.default_rng(11)
+    y0 = np.zeros((B, 6), np.float32)
+    y0[:, 0] = rng.uniform(-0.1, 0.5, B)
+    y0[:, 1] = rng.uniform(-0.1, 0.1, B)
+    y0[:, 2] = rng.uniform(-0.2, 0.2, B)
+    y0[:, 3] = rng.uniform(0.3, 1.0, B)
+    param = {"y0": torch.as_tensor(y0, device=cuda), "p": VehicleParams(),
+             "centerline": straight_centerline(100, device=cuda)}
+    carry = ctrl.step(ctrl.init_carry(B), param).carry
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    trips = 0
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            out = ctrl.step(carry, param)
+            carry = out.carry
+            trips += out.result.stats.trips
+        torch.cuda.synchronize()
+    # the spans are host ranges alone: no device event carries their names
+    assert not [ev.name() for ev in prof.profiler.kineto_results.events()
+                if ev.device_type() == torch.autograd.DeviceType.CUDA
+                and ev.name() in timing.SPANS]
+    dev, spans, launches = timing.profiler_events(prof)
+    r = timing.span_breakdown(dev, spans, launches)
+    print(f"span breakdown: {r}")
+    # every gap goes to a span or to the host outside the controller, and
+    # the gaps make up the trace's span less its busy union
+    assert set(r["idle_s"]) <= set(timing.SPANS) | {timing.OUTSIDE}
+    first = min(iv[0] for iv in dev)
+    last = max(iv[1] for iv in dev)
+    idle_s = (last - first) / 1e9 - r["busy_s"]
+    assert sum(r["idle_s"].values()) == pytest.approx(idle_s, rel=0.01)
+
+    fan = [iv for iv in dev if "fused_psi_fan" in iv[3]]
+    # one fan a trip and one at each solve's start
+    assert len(fan) == trips + 2
+    k = timing.span_breakdown(fan, spans, launches)["kernels"]
+    print(f"fan kernels by span: {k}")
+    assert set(k) <= {"panoc.fan", "panoc.init", timing.UNATTRIBUTED}
+    if timing.UNATTRIBUTED not in k:
+        assert k == {"panoc.fan": trips, "panoc.init": 2}
+
+
 # ---------------------------------------------------------------------------
 # AL-iLQR: no kernel of its own, batched torch ops on the card
 # ---------------------------------------------------------------------------
