@@ -21,8 +21,9 @@ fails the run with a nonzero exit:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the fan kernels (csrc/fused_psi.cu) from this checkout
-   and prints nvcc's registers, stack frame and spills of each instance;
+2. build: compiles the fan kernels (csrc/fused_psi.cu) and PANOC's
+   direction kernel (csrc/panoc_direction.cu) from this checkout and prints
+   nvcc's registers, stack frame and spills of each instance;
 3. kernel checks, for each kernel of the table ``KERNELS`` against its
    plain PyTorch version on the card (``mpc_tpu_torch.kernels.check``; psi
    rtol 2e-5 / atol 1e-6, grad rtol 2e-4 / atol 2e-5 per entry, for K3 plus
@@ -63,7 +64,13 @@ fails the run with a nonzero exit:
    bound, the larger of the bytes it must move over 3.35 TB/s and the
    operations it must do over 67 TFLOP/s (see ``fan_bound`` in
    utils/roofline.py; beside it the former count, which charged the
-   per-stage constants to every evaluation);
+   per-stage constants to every evaluation). Then P1, PANOC's direction
+   kernel (no TPU kernel: the JAX package's two-loop is jnp), at the
+   benchmark cells' shapes (16,384 lanes, n = 24, L-BFGS memory 12;
+   32,768, 40, 20) on drawn rings of every state with a NaN-gradient lane,
+   held against its plain version by ``compare_direction`` (kernels/
+   check.py: the same float64 rule), timed with its plain version as in
+   phase 4, and its byte bound (``direction_bound``);
 5. the LQT solves (mpc_tpu_torch/solver/lqr.py), sequential and parallel
    scan, at config 2's backward shapes (N=40, n=6, m=2; B=256 and B=1) on
    drawn well-posed problems with the cross term, each held against the
@@ -88,11 +95,16 @@ fails the run with a nonzero exit:
    cut). A path's kernel must have
    launched at least once per PANOC iteration run (the slowest lane's,
    summed over the controller's steps; both tiers for config 5); ilqr_n40
-   must launch none. Every state must be finite, the mean converged
-   fraction >= 0.99 (headline, config 1, etc, config 5) or >= 0.98 (ss_n40,
-   ilqr_n40, whose converged lanes must also meet the constraints to delta
-   = 1e-3), etc's mean trigger fraction in (0, 1], and some pair of config
-   4 must change lane;
+   must launch none. P1 must have launched exactly once per PANOC trip,
+   summed over the path's solves (``SolveStats.trips``), and at least once
+   per PANOC iteration run, on every path but ilqr_n40, which runs no
+   PANOC; its calls numbered ``P1_CALLS`` in the path are held against its
+   plain version as in phase 4, on their lanes with finite inputs. Every
+   state must be
+   finite, the mean converged fraction >= 0.99 (headline, config 1, etc,
+   config 5) or >= 0.98 (ss_n40, ilqr_n40, whose converged lanes must also
+   meet the constraints to delta = 1e-3), etc's mean trigger fraction in
+   (0, 1], and some pair of config 4 must change lane;
 7. the unfused paths, through ``mpc_tpu_torch.bench`` as in phase 6, each
    of which must launch no fan kernel: ms_n40_m8 at batch 256 (converged
    >= 0.85, its converged lanes within delta = 1e-3 of the constraints,
@@ -157,7 +169,9 @@ It prints the kernel table as one JSON line before the last, and as the last
 line {"ok": true, "device": {...}}. It imports nothing of JAX.
 
 With --timing it runs phases 1, 2 and 4 only, times each kernel alone (no
-plain version) and prints {"timing": [...]} as its last line, not the ok
+plain version; P1 with its plain version, which takes milliseconds; a
+checkout without P1 leaves its row out) and prints {"timing": [...]} as
+its last line, not the ok
 line: copied over a checkout of another commit, it times that commit's
 kernels the same way, so that two commits can be compared in one session
 on one card (run them in turns: the first, the second, the second, the
@@ -179,6 +193,9 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 SUBSTEPS, TS, S = 4, 0.05, 100
 EXCUSED_MAX_SHARE = 0.01
 K3_MAX_CALLS = 40           # captured K3 calls checked per shape
+# a path's P1 calls captured and checked, by their number in the path:
+# empty and partly filled rings first, full and wrapped ones later
+P1_CALLS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
 ROADS_MAX_CALLS = 12        # captured K1 roads calls checked per shape
 # The depth of the paths driven at less than their cells': the fields of
 # the cell replaced. ss_n40's steps take 14-22 s each on the H100 and
@@ -336,6 +353,84 @@ def recording(name, stamp=lambda: 0, counted=False):
             wrapper.launches += recorder.launches
             if hasattr(wrapper, "road_launches"):
                 wrapper.road_launches += recorder.road_launches
+
+
+@contextlib.contextmanager
+def recording_direction():
+    """``panoc.direction`` replaced by a recorder that keeps the calls
+    numbered in ``P1_CALLS`` as ``(args, out)``, each tensor cloned, and
+    ``panoc.SolveStats``, which every PANOC solve builds once, by one that
+    sums the solves' trips. Yields ``(calls, counts)``; ``counts`` holds P1's
+    ``launches`` and the ``trips`` once the block ends. The wrapper counts
+    its launches on whatever ``panoc.direction`` names, so they land on the
+    recorder and are added to the wrapper's count at the end."""
+    import torch
+    from mpc_tpu_torch.solver import panoc
+    wrapper, stats_cls = panoc.direction, panoc.SolveStats
+    calls, counts, seen = [], {"launches": 0, "trips": 0}, [0]
+
+    def clone(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return type(a)(*map(clone, a))
+        return a
+
+    def recorder(*args):
+        out = wrapper(*args)
+        if seen[0] in P1_CALLS:
+            calls.append((clone(args), clone(out)))
+        seen[0] += 1
+        return out
+
+    def stats(trips, *rest, **kw):
+        counts["trips"] += trips
+        return stats_cls(trips, *rest, **kw)
+
+    recorder.launches = 0
+    panoc.direction, panoc.SolveStats = recorder, stats
+    try:
+        yield calls, counts
+    finally:
+        panoc.direction, panoc.SolveStats = wrapper, stats_cls
+        counts["launches"] = recorder.launches
+        wrapper.launches += recorder.launches
+
+
+def check_direction_calls(tag, calls):
+    """Hold each captured P1 call ``(args, out)`` against the plain version
+    by ``compare_direction``, as phase 4 holds the drawn inputs, on the
+    call's lanes whose inputs are all finite: a lane the closed loop ran to
+    inf (``MAY_DIVERGE``) may turn inf into NaN in one summation order and
+    not in the other (the NaN rule is held on the drawn inputs). Returns
+    the totals."""
+    import torch
+    from mpc_tpu_torch.kernels.check import compare_direction
+    tot = {"calls": len(calls), "lanes": 0, "excused": 0, "nonfinite": 0,
+           "shapes": set()}
+    for k, (args, out) in enumerate(calls):
+        u, g, gamma, C, lb, tr_mult, taus = args
+        fin = (torch.isfinite(u).all(1) & torch.isfinite(g).all(1)
+               & torch.isfinite(gamma) & torch.isfinite(lb.rho).all(1)
+               & torch.isfinite(lb.S).flatten(1).all(1)
+               & torch.isfinite(lb.Y).flatten(1).all(1))
+        idx = fin.nonzero().squeeze(1)
+        tot["nonfinite"] += int(u.shape[0] - idx.numel())
+        if not idx.numel():
+            continue
+        sub = lambda t: t[idx]                             # noqa: E731
+        r = compare_direction(type(out)(*map(sub, out)), sub(u), sub(g),
+                              sub(gamma), C, type(lb)(*map(sub, lb)),
+                              tr_mult, taus)
+        if r["failed"] or r["nan_mismatch"] or not r["elementwise_equal"] \
+                or r["excused"] > EXCUSED_MAX_SHARE * r["lanes"]:
+            fail(f"{tag}: P1's call {P1_CALLS[k]} (B={u.shape[0]}, "
+                 f"n={u.shape[1]}, M={lb.S.shape[1]}): {r}")
+        tot["lanes"] += r["lanes"]
+        tot["excused"] += r["excused"]
+        tot["shapes"].add((u.shape[1], lb.S.shape[1]))
+    tot["shapes"] = sorted(tot["shapes"])
+    return tot
 
 
 def capture_fan_inputs(name, source):
@@ -509,10 +604,14 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
     if cell.name in SMOKE_DEPTH:
         cell = dataclasses.replace(cell, **SMOKE_DEPTH[cell.name])
     wrappers = _reset_counts(fp)
-    r = run(cell)
+    with recording_direction() as (p1_calls, p1_counts):
+        r = run(cell)
+    p1, trips = p1_counts["launches"], p1_counts["trips"]
     launches = {w.__name__: w.launches for w in wrappers}
     launches["road_launches"] = fp.fan_value_and_grad.road_launches
     r["fan_kernel_launches"] = launches
+    r["direction_launches"] = p1
+    r["panoc_trips"] = trips
     print(json.dumps({"bench": dict(r, cell=cell.name)}))
     ms = lambda key: f"{r[key] * 1e3:.2f} ms"        # noqa: E731
     parts = [f"{r['solves_per_s']:.1f} solves/s"]
@@ -538,7 +637,7 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
                      f"payoffs {r['decisions_per_s']:.1f} decisions/s at "
                      f"batch {r['payoff_batch']}")
     parts.append(f"inner iterations run {r['inner_iterations_run']}, "
-                 f"launches {launches}")
+                 f"launches {launches}, P1 {p1} for {trips} PANOC trips")
     if "single_solve_p50_s" in r:
         parts.append(f"batch-1 p50 {ms('single_solve_p50_s')} p99 "
                      f"{ms('single_solve_p99_s')}")
@@ -578,6 +677,20 @@ def drive(cell, wrapper, fp, min_conv, roads=False):
         if roads and not launches["road_launches"]:
             fail(f"{cell.name}: the path never launched K1 on per-lane "
                  f"roads")
+    if cell.name == "ilqr_n40":
+        if p1 or trips:
+            fail(f"ilqr_n40: PANOC ran {trips} trips and its direction "
+                 f"kernel launched {p1} times on an AL-iLQR path")
+    elif p1 != trips or p1 < max(1, r["inner_iterations_run"]):
+        fail(f"{cell.name}: PANOC's direction kernel launched {p1} times "
+             f"for {trips} PANOC trips and {r['inner_iterations_run']} "
+             f"iterations")
+    else:
+        c = check_direction_calls(cell.name, p1_calls)
+        print(f"path {cell.name}: P1 held against its plain version on "
+              f"{c['calls']} calls, {c['lanes']} lanes (n, M) {c['shapes']}, "
+              f"{c['excused']} excused, {c['nonfinite']} non-finite lanes "
+              f"left out")
     if not r["states_finite"] and cell.name not in MAY_DIVERGE:
         fail(f"{cell.name}: non-finite plant state in the closed loop")
     if min_conv is not None \
@@ -1547,6 +1660,62 @@ KERNELS = (
 )
 
 
+#: P1's shapes (lanes, n, L-BFGS memory): the straight and circle cells'
+#: and the kinematic cell's
+DIRECTION_SHAPES = ((16384, 24, 12), (32768, 40, 20))
+DIRECTION_TAUS = (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0)
+
+
+def direction_phase(info, timing=False):
+    """P1, PANOC's direction kernel, at ``DIRECTION_SHAPES`` on drawn rings
+    (every ring state, a NaN-gradient lane): held against its plain version
+    (not with ``timing``), timed with it by ``time_pair``, and its bound.
+    Returns its row of the kernel table."""
+    import torch
+    from mpc_tpu_torch.kernels.check import (compare_direction,
+                                             drawn_direction_inputs)
+    from mpc_tpu_torch.solver import panoc
+    from mpc_tpu_torch.utils.roofline import direction_bound
+    taus, tr_mult = DIRECTION_TAUS, 1e5
+    row = {"name": "panoc_direction", "label": "P1", "route": "cuda",
+           "source": "mpc_tpu_torch/csrc/panoc_direction.cu",
+           "replaces": "no TPU kernel: the JAX package's two-loop is jnp "
+                       "(mpc_tpu/solver/panoc.py:241-281)",
+           "library_ms": None, "ms_by_E": {}, "plain_ms_by_E": {},
+           "bound_ms_by_E": {}, "bound_by": None, "lanes_checked": 0,
+           "lanes_excused": 0}
+    for B, n, M in DIRECTION_SHAPES:
+        args = drawn_direction_inputs(B, n, M, seed=B + n, device="cuda",
+                                      nan_lanes=(5,))
+        out = panoc.direction(*args, tr_mult, taus)
+        torch.cuda.synchronize()
+        if not timing:
+            r = compare_direction(out, *args, tr_mult, taus)
+            print(f"kernel check P1 E={B} n={n} M={M}: {r}")
+            if r["failed"] or r["nan_mismatch"] \
+                    or not r["elementwise_equal"] \
+                    or r["excused"] > EXCUSED_MAX_SHARE * B:
+                fail(f"P1 at E={B}: {r}")
+            row["lanes_checked"] += r["lanes"]
+            row["lanes_excused"] += r["excused"]
+        ms, plain_ms = time_pair(
+            f"P1 E={B} n={n} M={M}",
+            lambda: panoc.direction(*args, tr_mult, taus),
+            lambda: panoc.direction_reference(*args, tr_mult, taus), 10, info)
+        u, g, gamma, C, lb = args
+        bound_ms, bound_by, nbytes, ops = direction_bound(
+            B, n, M, len(taus), [u, g, gamma, C.lower, C.upper, *lb],
+            list(out))
+        print(f"bound P1 E={B}: {nbytes} bytes, {ops} operations -> "
+              f"{bound_ms:.5f} ms ({bound_by}); kernel at "
+              f"{bound_ms / ms:.2%} of it; plain version {plain_ms:.4f} ms")
+        row["ms_by_E"][B] = ms
+        row["plain_ms_by_E"][B] = plain_ms
+        row["bound_ms_by_E"][B] = bound_ms
+        row["bound_by"] = bound_by
+    return row
+
+
 def split(k, args):
     """A wrapper call's operands: ``(u, y0, cltab, pvec, al, fan_args)``."""
     u, y0, cltab, pvec = args[:4]
@@ -1703,6 +1872,11 @@ def main():
         thread.start()
     b = kbuild.build("fused_psi")
     kbuild.load_fused_psi()
+    # an earlier commit timed by this script has no direction kernel
+    has_p1 = hasattr(kbuild, "load_panoc_direction")
+    b_p1 = kbuild.build("panoc_direction") if has_p1 else None
+    if has_p1:
+        kbuild.load_panoc_direction()
     if has_native:
         thread.join()
         if "error" in native:
@@ -1711,7 +1885,12 @@ def main():
     print(f"build: fused_psi {'compiled' if b['built'] else 'cached'} in "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(b['path'], HERE)}")
-    for line in b["log"].splitlines():
+    if has_p1:
+        print(f"build: panoc_direction "
+              f"{'compiled' if b_p1['built'] else 'cached'} in "
+              f"{b_p1['seconds']:.2f} s -> "
+              f"{os.path.relpath(b_p1['path'], HERE)}")
+    for line in (b["log"] + (b_p1["log"] if has_p1 else "")).splitlines():
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
             print(f"  nvcc: {line.strip()}")
@@ -1728,14 +1907,16 @@ def main():
                       f"checkout")
         measured = [kernel_phase(k, fp, bench, info, timing)
                     for k in kernels]
+        p1 = [direction_phase(info, timing)] if has_p1 else []
         print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"timing": [
             {"name": k.name, "ms_by_E": m["ms_by_E"],
              "single_lane_ms": m["single_lane_ms"],
              "serial_chain_ms": m["serial_chain_ms"]}
-            for k, m in zip(kernels, measured)]}))
+            for k, m in zip(kernels, measured)] + p1}))
         return
     measured = [kernel_phase(k, fp, bench, info) for k in KERNELS]
+    p1 = direction_phase(info)
     print(f"kernel phases done in {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. the LQT solves and the no-sync check --------------------------
@@ -1808,7 +1989,7 @@ def main():
                                       entry_runs.items() if c[k.label]},
             **({"launches_exp_shift_warm": shift_warm}
                if k.label == "K1" else {})})
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + [p1]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

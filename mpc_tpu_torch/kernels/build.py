@@ -73,6 +73,26 @@ def build(name: str) -> dict:
             "log": proc.stdout + proc.stderr}
 
 
+def check_operand(who: str, name: str, t, shape, device, dtype=None):
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` and ``dtype``
+    (float32 by default) on ``device``: what a kernel's wrapper checks of
+    each operand before it hands the kernel a pointer (``who`` names the
+    wrapper in the message)."""
+    import torch
+    dtype = torch.float32 if dtype is None else dtype
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{who}: {name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{who}: {name} is on {t.device}, u is on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be contiguous")
+
+
 def load_fused_psi() -> ctypes.CDLL:
     """The fan kernels' library (``csrc/fused_psi.cu``: K1
     ``mpc_fused_psi_fan``, on one road or per-lane roads, K2
@@ -103,4 +123,22 @@ def load_fused_psi() -> ctypes.CDLL:
                 [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2)
             lib.mpc_fused_psi_fan_plan.restype = ctypes.c_int
             _loaded["fused_psi"] = lib
+        return lib
+
+
+def load_panoc_direction() -> ctypes.CDLL:
+    """PANOC's direction kernel's library (``csrc/panoc_direction.cu``:
+    ``mpc_panoc_direction``), built on first use."""
+    with _lock:
+        lib = _loaded.get("panoc_direction")
+        if lib is None:
+            lib = ctypes.CDLL(build("panoc_direction")["path"])
+            # 15 tensors; B, n, M; tr_mult; the taus' two float arrays and
+            # their count; the stream
+            lib.mpc_panoc_direction.argtypes = (
+                [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                + [ctypes.POINTER(ctypes.c_float)] * 2
+                + [ctypes.c_int, ctypes.c_void_p])
+            lib.mpc_panoc_direction.restype = ctypes.c_int
+            _loaded["panoc_direction"] = lib
         return lib

@@ -1,4 +1,5 @@
-"""Hold a fan kernel's outputs against its plain PyTorch version.
+"""Hold a kernel's outputs against its plain PyTorch version: the fan
+kernels (:func:`compare_fan`) and PANOC's direction (:func:`compare_direction`).
 
 A lane passes when its psi and every gradient entry lie within the bar of
 the plain version on the same inputs (``|got - ref| <= atol + rtol |ref|``
@@ -40,9 +41,12 @@ fails.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mpc_tpu_torch.ops import fused_psi as fp
+from mpc_tpu_torch.solver import panoc
+from mpc_tpu_torch.solver.problem import Box
 
 #: K3's gradient bar: this multiple of each lane's largest gradient entry is
 #: added to the per-entry bar (see the module docstring for the readings)
@@ -167,3 +171,126 @@ def compare_fan(psi, grad, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
             "max_abs_err_grad": e_grad, "max_abs_err_within_bar": e_in,
             "max_rel_err_within_bar": e_rel, "lane_term_needed": need,
             "excused_plain_miss_min": miss}
+
+
+#: the direction's bar per entry. r, fmask and u_hat = cands[:, 0] are
+#: elementwise and equal the plain version's bits; rn2, crit and the
+#: L-BFGS candidates follow dots summed in another order, which a
+#: well-conditioned ring moves by a few ulp (1e-7), a wrong slot or sign
+#: by order 1
+DIRECTION_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _direction_rows(out) -> torch.Tensor:
+    """A direction's outputs, one row of every entry per lane."""
+    B = out.r.shape[0]
+    return torch.cat([out.cands.reshape(B, -1), out.r, out.rn2[:, None],
+                      out.crit[:, None], out.fmask], dim=1)
+
+
+def _excess_nan(got, ref, rtol, atol):
+    """:func:`_excess` with a NaN where the reference has one counted as
+    met: a NaN gradient stays NaN."""
+    both = torch.isnan(got) & torch.isnan(ref)
+    return _excess(torch.where(both, 0.0, got), torch.where(both, 0.0, ref),
+                   rtol, atol)
+
+
+def compare_direction(got, u, g_u, gamma, C: Box, lbfgs, tr_mult, taus,
+                      tol=DIRECTION_TOL) -> dict:
+    """Compare the kernel's :class:`panoc.Direction` ``got`` on the inputs
+    of :func:`panoc.direction` with the plain version on the same inputs,
+    by the rule of :func:`compare_fan`: a lane beyond the bar is held, with
+    the plain version's float32 result, against the plain version in
+    float64, and fails only where the plain float32 version meets float64's
+    bar and the kernel does not. A NaN entry must be NaN in both.
+
+    Returns the counts of lanes (``lanes``, ``beyond_bar``, ``excused``,
+    ``failed``), of entries NaN in one version alone (``nan_mismatch``),
+    whether ``r``, ``fmask`` and ``cands[:, 0]`` equal the plain version's
+    bits (``elementwise_equal``), and the largest absolute error of the
+    lanes within the bar (``max_abs_err_within_bar``)."""
+    ref = panoc.direction_reference(u, g_u, gamma, C, lbfgs, tr_mult, taus)
+    rows, rows_r = _direction_rows(got), _direction_rows(ref)
+    nan_mismatch = int((torch.isnan(rows) != torch.isnan(rows_r)).sum())
+    elementwise_equal = all(
+        torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+        and torch.equal(torch.isnan(a), torch.isnan(b))
+        for a, b in ((got.r, ref.r), (got.fmask, ref.fmask),
+                     (got.cands[:, 0], ref.cands[:, 0])))
+    over = _excess_nan(rows, rows_r, **tol) > 1.0
+    ok = ~over
+    err = (rows - rows_r).abs().nan_to_num(nan=0.0)
+    e_in = float(err[ok].max()) if bool(ok.any()) else 0.0
+    excused = failed = 0
+    if bool(over.any()):
+        idx = over.nonzero().squeeze(1)
+        lb64 = type(lbfgs)(lbfgs.S[idx].double(), lbfgs.Y[idx].double(),
+                           lbfgs.rho[idx].double(), lbfgs.valid[idx],
+                           lbfgs.head[idx])
+        ref64 = _direction_rows(panoc.direction_reference(
+            u[idx].double(), g_u[idx].double(), gamma[idx].double(),
+            Box(C.lower.double(), C.upper.double()), lb64, tr_mult, taus))
+        d_kernel = _excess_nan(rows[idx].double(), ref64, **tol)
+        d_plain = _excess_nan(rows_r[idx].double(), ref64, **tol)
+        good = (d_kernel <= 1.0) | (d_plain > 1.0)
+        excused, failed = int(good.sum()), int((~good).sum())
+    return {"lanes": int(u.shape[0]), "beyond_bar": excused + failed,
+            "excused": excused, "failed": failed,
+            "nan_mismatch": nan_mismatch,
+            "elementwise_equal": elementwise_equal,
+            "max_abs_err_within_bar": e_in}
+
+
+#: the ring states of :func:`drawn_direction_inputs`, given to the lanes in
+#: turn: no pair yet; the first k slots filled, head at k; every slot
+#: filled, head anywhere (the ring wrapped); a random set of slots valid,
+#: the others holding stale pairs a thousand times larger
+RING_KINDS = ("empty", "partial", "wrapped", "mixed")
+
+
+def drawn_direction_inputs(B: int, n: int, M: int, seed: int, device=None,
+                           bounded: bool = True, kinds=RING_KINDS,
+                           nan_lanes=()):
+    """Inputs of :func:`panoc.direction` drawn from ``seed``: ``(u, g_u,
+    gamma, C, lbfgs)``. u in [-1.2, 1.2] and the box [-1, 1] (``bounded``;
+    else unbounded), so that the projection is active on some coordinates;
+    gamma log-uniform over [1e-3, 1]; lane b's ring in state
+    ``kinds[b % len(kinds)]`` (``RING_KINDS``), its pairs y = A s of one
+    symmetric positive definite A, rho = 1 / s.y; the gradient NaN on the
+    lanes ``nan_lanes``."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-1.2, 1.2, (B, n)).astype(np.float32)
+    g = rng.normal(size=(B, n)).astype(np.float32)
+    g[list(nan_lanes)] = np.nan
+    gamma = np.exp(rng.uniform(np.log(1e-3), 0.0, B)).astype(np.float32)
+    Q = rng.normal(size=(n, n))
+    A = (Q @ Q.T / n + np.eye(n)).astype(np.float32)
+    S = (1e-2 * rng.normal(size=(B, M, n))).astype(np.float32)
+    Y = (S.reshape(-1, n) @ A.T).reshape(B, M, n).astype(np.float32)
+    rho = (1.0 / np.einsum("bmn,bmn->bm", S, Y)).astype(np.float32)
+    valid = np.zeros((B, M), bool)
+    head = np.zeros(B, np.int64)
+    kind = np.arange(B) % len(kinds)
+    for k, name in enumerate(kinds):
+        lanes = np.nonzero(kind == k)[0]
+        if name == "partial":
+            fill = rng.integers(1, max(2, M), lanes.size)
+            valid[lanes] = np.arange(M)[None, :] < fill[:, None]
+            head[lanes] = fill % M
+        elif name == "wrapped":
+            valid[lanes] = True
+            head[lanes] = rng.integers(0, M, lanes.size)
+        elif name == "mixed":
+            valid[lanes] = rng.random((lanes.size, M)) < 0.5
+            head[lanes] = rng.integers(0, M, lanes.size)
+            stale = ~valid[lanes]
+            S[lanes] = np.where(stale[..., None], 1e3 * S[lanes], S[lanes])
+            Y[lanes] = np.where(stale[..., None], 1e3 * Y[lanes], Y[lanes])
+        elif name != "empty":
+            raise ValueError(f"unknown ring state {name!r}")
+    lim = np.full(n, 1.0 if bounded else np.inf, np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)    # noqa: E731
+    C = Box(t(-lim), t(lim))
+    lbfgs = panoc.LbfgsState(t(S), t(Y), t(rho), t(valid), t(head))
+    return t(u), t(g), t(gamma), C, lbfgs

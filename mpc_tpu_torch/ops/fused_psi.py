@@ -44,6 +44,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from mpc_tpu_torch.kernels.build import check_operand
 from mpc_tpu_torch.models.params import KERNEL_PARAM_FIELDS, VehicleParams
 from mpc_tpu_torch.ops.costs import DEFAULT_VEHICLE_WEIGHTS
 from mpc_tpu_torch.ops.road import wrap_to_pi
@@ -555,17 +556,7 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
 # ---------------------------------------------------------------------------
 
 def _check(name, t, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"fan: {name} must be a tensor")
-    if t.dtype != torch.float32:
-        raise TypeError(f"fan: {name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fan: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"fan: {name} is on {t.device}, u is on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"fan: {name} must be contiguous")
+    check_operand("fan", name, t, shape, device)
 
 
 def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,

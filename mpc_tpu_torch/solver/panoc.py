@@ -17,13 +17,16 @@ the trust-region cap ``tr_mult``, the stall and plateau exits and the
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import time
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from mpc_tpu_torch.config import PanocConfig
+from mpc_tpu_torch.kernels.build import check_operand
 from mpc_tpu_torch.solver.problem import Box, fold_lanes, project
 from mpc_tpu_torch.utils.timing import span
 
@@ -138,6 +141,129 @@ def lbfgs_direction(st: LbfgsState, q: torch.Tensor) -> torch.Tensor:
         b = torch.where(m, rho_i * _dot(y_i, q), torch.zeros_like(rho_i))
         q = q + ((a - b) * mf)[:, None] * s_i
     return -q
+
+
+# ---------------------------------------------------------------------------
+# The direction and the candidates: one kernel on the card
+# ---------------------------------------------------------------------------
+
+#: what the direction kernel's entry returns for a shape outside its limits
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+class Direction(NamedTuple):
+    """What a trip's acceptance needs of its direction (B lanes, n inputs,
+    T taus)."""
+    cands: torch.Tensor   # (B, 1 + T, n): u_hat, then u - (1 - tau) r + tau d
+    r: torch.Tensor       # (B, n) u - u_hat, the projected step's residual
+    rn2: torch.Tensor     # (B,) r . r
+    crit: torch.Tensor    # (B,) ||r|| / gamma
+    fmask: torch.Tensor   # (B, n) 1.0 on the free coordinates, else 0.0
+
+
+def direction_reference(u: torch.Tensor, g_u: torch.Tensor,
+                        gamma: torch.Tensor, C: Box, lbfgs: LbfgsState,
+                        tr_mult: float, taus: Sequence[float]) -> Direction:
+    """The plain PyTorch version of :func:`direction`: the projected step,
+    the residual and criterion, the structured L-BFGS step on the free
+    coordinates under the trust cap, and the candidate fan's inputs
+    (mpc_tpu/solver/panoc.py:241-281). The CPU path and the oracle the
+    kernel is held to."""
+    gc = gamma[:, None]
+    fw = u - gc * g_u
+    u_hat = project(fw, C)
+    r = u - u_hat
+    rn2 = _dot(r, r)
+    crit = torch.sqrt(rn2) / gamma
+    # Structured step: quasi-Newton only on the free coordinates.
+    free = (fw > C.lower) & (fw < C.upper)
+    fmask = free.to(u.dtype)
+    d_free = lbfgs_direction(lbfgs, r * fmask)
+    # Trust-region cap against noise-poisoned curvature pairs.
+    dn = torch.linalg.vector_norm(d_free, dim=-1)
+    cap = tr_mult * torch.sqrt(rn2)
+    d_free = d_free * torch.clamp(
+        cap / torch.clamp(dn, min=1e-30), max=1.0)[:, None]
+    d = torch.where(free, d_free, -r)
+    # Candidate fan: x_hat (tau=0) plus the tau grid.
+    cands = torch.stack([u_hat] + [u - (1.0 - t) * r + t * d for t in taus],
+                        dim=1)
+    return Direction(cands, r, rn2, crit, fmask)
+
+
+@functools.lru_cache(maxsize=8)
+def _taus_arrays(taus: tuple):
+    """The taus as the kernel takes them: ``(1 - tau)`` and ``tau``, each
+    rounded to float32 from the Python float as PyTorch rounds a scalar."""
+    arr = ctypes.c_float * max(1, len(taus))
+    return arr(*(1.0 - t for t in taus)), arr(*taus)
+
+
+def direction(u: torch.Tensor, g_u: torch.Tensor, gamma: torch.Tensor,
+              C: Box, lbfgs: LbfgsState, tr_mult: float,
+              taus: Sequence[float]) -> Direction:
+    """A trip's direction and candidates for every lane: u, g_u (B, n),
+    gamma (B,), the box C (n,), the L-BFGS ring ``lbfgs``, the trust cap's
+    ``tr_mult`` and the ``taus``.
+
+    On a CUDA ``u`` it launches the hand-written kernel
+    (``csrc/panoc_direction.cu``), one launch for the whole block, and
+    raises on an operand of another device, dtype (the kernel is float32),
+    shape or layout, or a shape outside the limits its entry
+    ``mpc_panoc_direction`` states; there is no fallback on the card. On
+    the CPU it is :func:`direction_reference`. ``launches`` counts the
+    kernel's launches.
+    """
+    if not (isinstance(u, torch.Tensor) and u.is_cuda):
+        return direction_reference(u, g_u, gamma, C, lbfgs, tr_mult, taus)
+    if u.dim() != 2:
+        raise ValueError("direction: u must be a 2-D tensor (B, n)")
+    B, n = u.shape
+    M = lbfgs.S.shape[1] if lbfgs.S.dim() == 3 else -1
+    dev, f32 = u.device, torch.float32
+    taus = tuple(float(t) for t in taus)
+    for name, t, shape, dtype in (
+            ("u", u, (B, n), f32), ("g_u", g_u, (B, n), f32),
+            ("gamma", gamma, (B,), f32), ("C.lower", C.lower, (n,), f32),
+            ("C.upper", C.upper, (n,), f32), ("S", lbfgs.S, (B, M, n), f32),
+            ("Y", lbfgs.Y, (B, M, n), f32), ("rho", lbfgs.rho, (B, M), f32),
+            ("valid", lbfgs.valid, (B, M), torch.bool),
+            ("head", lbfgs.head, (B,), torch.int64)):
+        check_operand("direction", name, t, shape, dev, dtype)
+
+    out = Direction(
+        cands=torch.empty((B, 1 + len(taus), n), dtype=f32, device=dev),
+        r=torch.empty((B, n), dtype=f32, device=dev),
+        rn2=torch.empty((B,), dtype=f32, device=dev),
+        crit=torch.empty((B,), dtype=f32, device=dev),
+        fmask=torch.empty((B, n), dtype=f32, device=dev))
+    if B == 0:
+        return out
+    from mpc_tpu_torch.kernels.build import load_panoc_direction
+    lib = load_panoc_direction()
+    one_minus, tau = _taus_arrays(taus)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mpc_panoc_direction(
+            u.data_ptr(), g_u.data_ptr(), gamma.data_ptr(),
+            C.lower.data_ptr(), C.upper.data_ptr(), lbfgs.S.data_ptr(),
+            lbfgs.Y.data_ptr(), lbfgs.rho.data_ptr(), lbfgs.valid.data_ptr(),
+            lbfgs.head.data_ptr(), *(t.data_ptr() for t in out), B, n, M,
+            tr_mult, one_minus, tau, len(taus), stream)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"direction: the kernel does not take B={B}, n={n}, "
+                         f"L-BFGS memory {M} and {len(taus)} taus (see the "
+                         f"limits of mpc_panoc_direction in "
+                         f"csrc/panoc_direction.cu)")
+    if rc != 0:
+        raise RuntimeError(f"direction: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+    direction.launches += 1
+    return out
+
+
+#: kernel launches since the count was last reset
+direction.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +464,9 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
             # in one call.
             h = 1e-4 * (1.0 + torch.abs(u0))
             psis0, grads0 = cand_vg(torch.stack([u0, u0 + h], dim=1), args)
-            psi0, g0, g_h = psis0[:, 0], grads0[:, 0], grads0[:, 1]
+            # g0 contiguous: the direction kernel takes whole rows
+            psi0, g0, g_h = psis0[:, 0], grads0[:, 0].contiguous(), \
+                grads0[:, 1]
             L0 = torch.linalg.vector_norm(g_h - g0, dim=-1) / torch.clamp(
                 torch.linalg.vector_norm(h, dim=-1), min=1e-30)
             L0 = torch.clamp(L0, 1e-8, 1e15)
@@ -370,11 +498,8 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
             gc = gamma[:, None]
 
             with span("panoc.direction"):
-                fw = u - gc * g_u
-                u_hat = project(fw, C)
-                r = u - u_hat
-                rn2 = _dot(r, r)
-                crit = torch.sqrt(rn2) / gamma
+                cands, r, rn2, crit, fmask = direction(
+                    u, g_u, gamma, C, st.lbfgs, cfg.tr_mult, taus)
                 conv_now = crit <= tol
 
                 tr = st.trace
@@ -388,23 +513,8 @@ def make_panoc_solver(psi_vg: Callable, C: Box, cfg: PanocConfig,
                     tr = PanocTrace(*bufs)
                 if progress_callback is not None:
                     progress_callback(st.iters, psi_u, crit, gamma)
-
-                # Structured step: quasi-Newton only on the free
-                # coordinates.
-                free = (fw > C.lower) & (fw < C.upper)
-                fmask = free.to(dtype)
-                d_free = lbfgs_direction(st.lbfgs, r * fmask)
-                # Trust-region cap against noise-poisoned curvature pairs.
-                dn = torch.linalg.vector_norm(d_free, dim=-1)
-                cap = cfg.tr_mult * torch.sqrt(rn2)
-                d_free = d_free * torch.clamp(
-                    cap / torch.clamp(dn, min=1e-30), max=1.0)[:, None]
-                d = torch.where(free, d_free, -r)
             with span("panoc.fan"):
-                # Candidate fan: x_hat (tau=0) plus the tau grid, one call.
-                cands = torch.stack(
-                    [u_hat] + [u - (1.0 - t) * r + t * d for t in taus],
-                    dim=1)
+                # the candidate fan in one call
                 psis, grads = cand_vg(cands, args)
             with span("panoc.accept"):
                 psi_hat = psis[:, 0]

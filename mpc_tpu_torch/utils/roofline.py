@@ -1,5 +1,6 @@
 """Operations, bytes and bounds of the port's hot functions on one H100: the
-fan kernels K1-K3 and the four phases of an AL-iLQR inner iteration.
+fan kernels K1-K3, PANOC's direction kernel P1 and the four phases of an
+AL-iLQR inner iteration.
 
 PyTorch has no counterpart of XLA's ``cost_analysis()``, which the JAX
 package's ``examples/exp_mfu.py`` reads, so the work is counted here from
@@ -100,6 +101,32 @@ def fan_bound(model, al, E, n_horiz, substeps, n_cl, operands, outputs):
     return (bound_ms, bound_by, nbytes, ops,
             max(former_ops / PEAK_F32_FLOPS * 1e3,
                 nbytes / PEAK_BYTES_PER_S * 1e3))
+
+
+# ---- PANOC's direction (mpc_tpu_torch/csrc/panoc_direction.cu) ------------
+
+def direction_ops(B: int, n: int, M: int, n_taus: int) -> int:
+    """One direction call over B lanes of n inputs at L-BFGS memory M with
+    ``n_taus`` taus: per coordinate the projected step (a multiply, a
+    subtraction, the clamp, the residual, two compares, r fmask and r.r's
+    multiply-add: 10); per ring slot and loop a dot and an update (4 n + 3,
+    twice); the initial scaling (4 n + 4); the cap (2 n + 6) and the
+    direction's select (2 n); the candidates (4 n per tau)."""
+    per_lane = (10 * n + 2 * M * (4 * n + 3) + 4 * n + 4 + 2 * n + 6
+                + 2 * n + 4 * n * n_taus)
+    return B * per_lane
+
+
+def direction_bound(B, n, M, n_taus, operands, outputs):
+    """``(bound_ms, bound_by, bytes, operations)`` of one direction call:
+    the bytes of its operands (the ring S, Y, rho, valid and head, u, g_u,
+    gamma and the box) read once and its outputs written once over the
+    memory rate, or its operations (``direction_ops``) over the float32
+    rate, whichever is larger."""
+    ops = direction_ops(B, n, M, n_taus)
+    nbytes = sum(t.numel() * t.element_size() for t in operands + outputs)
+    bound_ms, bound_by = bound(ops, nbytes)
+    return bound_ms, bound_by, nbytes, ops
 
 
 # ---- the AL-iLQR inner iteration (mpc_tpu_torch/solver/ilqr.py) -----------

@@ -1,7 +1,8 @@
 """On-card tests of the port's CUDA kernels (mpc_tpu_torch/csrc/fused_psi.cu:
 K1, the Pacejka fan, on one road and on per-lane roads, K2, the kinematic
 fan, and K3, the augmented-Lagrangian fan, all instances of the phased
-kernel), and of the AL-iLQR path on
+kernel; csrc/panoc_direction.cu: P1, PANOC's direction and candidates),
+and of the AL-iLQR path on
 the card (the LQT solves, an iteration that never waits for the card, the
 controller's default device).
 
@@ -19,13 +20,15 @@ from mpc_tpu_torch.config import AlmConfig, PanocConfig
 from mpc_tpu_torch.control.mpc import (STATE_CONSTRAINT_OFFSETS,
                                        build_vehicle_controller,
                                        build_vehicle_ilqr_controller)
-from mpc_tpu_torch.kernels.check import compare_fan
+from mpc_tpu_torch.kernels.check import (compare_direction, compare_fan,
+                                         drawn_direction_inputs)
 from mpc_tpu_torch.models.params import VehicleParams
 from mpc_tpu_torch.ops import fused_psi as fp
 from mpc_tpu_torch.ops.bezier import (bezier_centerline,
                                       lane_change_control_points)
 from mpc_tpu_torch.ops.road import circle_centerline, straight_centerline
 from mpc_tpu_torch.sim.scenarios import random_scenarios
+from mpc_tpu_torch.solver import panoc
 
 PSI_TOL = dict(rtol=2e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -590,6 +593,116 @@ def test_step_spans_own_the_idle_gaps_and_fan_kernels(cuda):
     assert set(k) <= {"panoc.fan", "panoc.init", timing.UNATTRIBUTED}
     if timing.UNATTRIBUTED not in k:
         assert k == {"panoc.fan": trips, "panoc.init": 2}
+
+
+# ---------------------------------------------------------------------------
+# P1: PANOC's direction and candidates (csrc/panoc_direction.cu)
+# ---------------------------------------------------------------------------
+
+TAUS = (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,M,bounded,tr_mult", [
+    # the straight and circle cells, the kinematic cell, config 2's K3
+    # path (K = 3); B not a multiple of a block's lanes; ms_n40_m8's
+    # decisions (K = 4, n not a multiple of 32); the largest ring the
+    # kernel takes (K = 4, M n = 6144, one lane a block); no bounds; a
+    # binding cap
+    (16384, 24, 12, True, 1e5), (32768, 40, 20, True, 1e5),
+    (1001, 80, 40, True, 1e5), (256, 122, 40, True, 1e5),
+    (37, 128, 48, True, 1e5), (999, 24, 12, False, 1e5),
+    (515, 40, 20, True, 0.05)])
+def test_direction_kernel_matches_plain_version(cuda, B, n, M, bounded,
+                                                tr_mult):
+    # every ring state (empty, partly valid, wrapped, stale slots) and a
+    # lane with a NaN gradient, which must stay NaN
+    u, g, gamma, C, lb = drawn_direction_inputs(
+        B, n, M, seed=B + n, device=cuda, bounded=bounded, nan_lanes=(5,))
+    before = panoc.direction.launches
+    got = panoc.direction(u, g, gamma, C, lb, tr_mult, TAUS)
+    torch.cuda.synchronize()
+    assert panoc.direction.launches == before + 1
+    r = compare_direction(got, u, g, gamma, C, lb, tr_mult, TAUS)
+    print(f"direction B={B} n={n} M={M}: {r}")
+    assert r["failed"] == 0 and r["nan_mismatch"] == 0, r
+    assert r["elementwise_equal"], r
+    assert r["excused"] <= B // 100, r
+    assert bool(torch.isnan(got.cands[5]).all())
+
+
+@pytest.mark.cuda
+def test_direction_kernel_raises_on_what_it_cannot_take(cuda):
+    u, g, gamma, C, lb = drawn_direction_inputs(8, 6, 4, seed=0, device=cuda)
+    call = lambda *a: panoc.direction(*a, 1e5, TAUS)       # noqa: E731
+    before = panoc.direction.launches
+    call(u, g, gamma, C, lb)
+    assert panoc.direction.launches == before + 1
+    with pytest.raises(ValueError, match="g_u"):
+        call(u, g.cpu(), gamma, C, lb)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(u, g.t().contiguous().t(), gamma, C, lb)
+    with pytest.raises(ValueError, match="shape"):
+        call(u, g[:4], gamma, C, lb)
+    with pytest.raises(TypeError, match="head"):
+        call(u, g, gamma, C, lb._replace(head=lb.head.int()))
+    # outside the entry's limits, one at a time: memory above 64, n above
+    # 128, a ring (M n) over 6144 floats, a ring not of a multiple of 4
+    # floats, more than 8 taus; none launches
+    before = panoc.direction.launches
+    for B, n, M in ((8, 6, 65), (8, 130, 4), (8, 100, 64), (8, 6, 3)):
+        with pytest.raises(ValueError, match="does not take"):
+            call(*drawn_direction_inputs(B, n, M, seed=0, device=cuda))
+    with pytest.raises(ValueError, match="does not take"):
+        panoc.direction(u, g, gamma, C, lb, 1e5, (0.5,) * 9)
+    # another dtype on the card is refused, not handed to the plain version
+    with pytest.raises(TypeError, match="float32"):
+        panoc.direction(u.double(), g.double(), gamma.double(),
+                        type(C)(C.lower.double(), C.upper.double()),
+                        lb._replace(S=lb.S.double(), Y=lb.Y.double(),
+                                    rho=lb.rho.double()), 1e5, TAUS)
+    assert panoc.direction.launches == before
+
+
+@pytest.mark.cuda
+def test_solve_launches_the_direction_kernel_once_a_trip(cuda, monkeypatch):
+    # One cold ALM fast-path solve (a controller step) at B = 512: the
+    # kernel launches exactly once per masked trip, and on the solve's own
+    # first calls it holds the plain version, u_hat = cands[:, 0] bit for
+    # bit.
+    B, n_horiz = 512, 12
+    ctrl = build_vehicle_controller(
+        n_horiz=n_horiz, alm_cfg=AlmConfig(eps=1e-4),
+        panoc_cfg=PanocConfig(lbfgs_memory=n_horiz, max_iter=300),
+        device=cuda)
+    rng = np.random.default_rng(5)
+    y0 = np.zeros((B, 6), np.float32)
+    y0[:, 0] = rng.uniform(-0.1, 0.5, B)
+    y0[:, 1] = rng.uniform(-0.1, 0.1, B)
+    y0[:, 2] = rng.uniform(-0.2, 0.2, B)
+    y0[:, 3] = rng.uniform(0.3, 1.0, B)
+    param = {"y0": torch.as_tensor(y0, device=cuda), "p": VehicleParams(),
+             "centerline": straight_centerline(100, device=cuda)}
+    calls, kernel = [], panoc.direction
+
+    def recording(*args):
+        out = kernel(*args)
+        if len(calls) < 12:
+            calls.append((args, out))
+        return out
+
+    # the wrapper counts on the module's ``direction``, here the recorder
+    recording.launches = 0
+    monkeypatch.setattr(panoc, "direction", recording)
+    res = ctrl.step(ctrl.init_carry(B), param).result
+    torch.cuda.synchronize()
+    assert res.stats.trips > 0
+    assert recording.launches == res.stats.trips
+    for args, out in calls[::4]:
+        r = compare_direction(out, *args)
+        assert r["failed"] == 0 and r["nan_mismatch"] == 0, r
+        ref = panoc.direction_reference(*args)
+        assert torch.equal(out.cands[:, 0], ref.cands[:, 0])
 
 
 # ---------------------------------------------------------------------------

@@ -211,3 +211,128 @@ def test_general_constraints_raise():
     talm.make_alm_solver(prob)
     with pytest.raises(ValueError, match="sigma_0"):
         talm.make_alm_solver(prob, TAlmConfig(sigma_0=(1.0, 2.0)))
+
+
+# ---------------------------------------------------------------------------
+# The direction block (solver/panoc.py:direction): its plain version against
+# the JAX package's block, and its dispatch on the CPU
+# ---------------------------------------------------------------------------
+
+def _jax_direction_block(u, g, gamma, lower, upper, st, tr_mult, taus):
+    """One lane of the top of the JAX package's PANOC body
+    (mpc_tpu/solver/panoc.py:241-281), transcribed with its own
+    ``project`` and ``lbfgs_direction``: the candidates and what the
+    acceptance reads."""
+    from mpc_tpu.solver.panoc import lbfgs_direction
+    from mpc_tpu.solver.problem import project
+    C = Box(lower, upper)
+    fw = u - gamma * g
+    u_hat = project(fw, C)
+    r = u - u_hat
+    rn2 = jnp.dot(r, r)
+    crit = jnp.sqrt(rn2) / gamma
+    free = (fw > C.lower) & (fw < C.upper)
+    fmask = free.astype(u.dtype)
+    d_free = lbfgs_direction(st, r * fmask)
+    dn = jnp.linalg.norm(d_free)
+    cap = tr_mult * jnp.sqrt(rn2)
+    d_free = d_free * jnp.minimum(1.0, cap / jnp.maximum(dn, 1e-30))
+    d = jnp.where(free, d_free, -r)
+    cands = jnp.stack([u_hat] + [u - (1.0 - t) * r + t * d for t in taus])
+    return cands, r, rn2, crit, fmask
+
+
+@pytest.mark.parametrize("ring,bounded,tr_mult,taus,nan_lane", [
+    ("empty", True, 1e5, (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0), False),
+    ("partial", True, 1e5, (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0), False),
+    ("wrapped", True, 1e5, (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0), False),
+    ("mixed", True, 1e5, (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0), False),
+    ("empty", False, 1e5, (0.5,), False),
+    ("partial", False, 1e5, (0.5,), False),
+    ("wrapped", False, 1e5, (1.0, 0.5, 0.1), False),
+    ("mixed", False, 1e5, (1.0, 0.5, 0.1), False),
+    # the trust cap binds on every lane with a nonzero free direction
+    ("wrapped", True, 0.05, (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0), False),
+    # a NaN gradient stays NaN in every output that reads it
+    ("mixed", True, 1e5, (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0), True)])
+def test_direction_matches_jax_block(ring, bounded, tr_mult, taus, nan_lane):
+    from mpc_tpu.solver.panoc import LbfgsState
+    from mpc_tpu_torch.kernels.check import drawn_direction_inputs
+    B, n, M = 12, 6, 4
+    u, g, gamma, C, lb = drawn_direction_inputs(
+        B, n, M, seed=len(ring) + 10 * bounded + int(tr_mult),
+        bounded=bounded, kinds=(ring,), nan_lanes=(3,) if nan_lane else ())
+    got = tpanoc.direction_reference(u, g, gamma, C, lb, tr_mult, taus)
+
+    st = LbfgsState(S=jnp.asarray(lb.S.numpy()), Y=jnp.asarray(lb.Y.numpy()),
+                    rho=jnp.asarray(lb.rho.numpy()),
+                    valid=jnp.asarray(lb.valid.numpy()),
+                    head=jnp.asarray(lb.head.numpy().astype(np.int32)))
+    lower, upper = jnp.asarray(C.lower.numpy()), jnp.asarray(C.upper.numpy())
+    block = jax.jit(jax.vmap(
+        lambda u_, g_, gm, s_: _jax_direction_block(u_, g_, gm, lower, upper,
+                                                   s_, tr_mult, taus)))
+    ref = block(jnp.asarray(u.numpy()), jnp.asarray(g.numpy()),
+                jnp.asarray(gamma.numpy()), st)
+    for name, a, b in zip(tpanoc.Direction._fields, got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6, equal_nan=True, err_msg=name)
+    if bounded:
+        # the projection is active on some coordinates, free on others
+        assert 0.0 < float(got.fmask.mean()) < 1.0
+    if tr_mult < 1.0:
+        # tau = 1 gives u + d, whose free part is held to tr_mult ||r||
+        dn = ((got.cands[:, 1] - u) * got.fmask).norm(dim=1)
+        cap = tr_mult * got.rn2.sqrt()
+        assert bool((dn <= cap * (1 + 1e-4) + 1e-6).all())
+        assert bool((dn >= cap * (1 - 1e-4)).any())
+    if nan_lane:
+        assert bool(torch.isnan(got.cands[3]).all())
+        assert bool(torch.isnan(got.crit[3]))
+        assert not bool(torch.isnan(got.cands[[0, 1, 2, 4]]).any())
+
+
+def test_cpu_solve_never_loads_the_direction_library(monkeypatch):
+    # a CPU solve runs the plain version: it neither loads (nor builds)
+    # csrc/panoc_direction.cu's library nor counts a launch
+    from mpc_tpu_torch.kernels import build
+
+    def refuse():
+        raise AssertionError("the CPU path loaded the direction kernel")
+
+    monkeypatch.setattr(build, "load_panoc_direction", refuse)
+    before = tpanoc.direction.launches
+    ts = np.array([[0.5, 2.0, -3.0, 0.1], [10.0, -10.0, 0.2, 0.9]],
+                  np.float32)
+    res = _port_solve(_qp_cost_torch, -np.ones(4), np.ones(4), 4,
+                      torch.as_tensor(ts), np.zeros_like(ts), 1e-5, 4, 100)
+    assert bool(res.converged.all())
+    assert res.stats.trips > 0
+    assert tpanoc.direction.launches == before
+    assert "panoc_direction" not in build._loaded
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_direction_dispatch_takes_the_plain_version(monkeypatch, dtype):
+    # CPU tensors, float32 or float64, go to direction_reference unchanged
+    from mpc_tpu_torch.kernels import build
+    from mpc_tpu_torch.kernels.check import drawn_direction_inputs
+
+    def refuse():
+        raise AssertionError("the plain path loaded the direction kernel")
+
+    monkeypatch.setattr(build, "load_panoc_direction", refuse)
+    u, g, gamma, C, lb = drawn_direction_inputs(9, 5, 3, seed=4)
+    if dtype == torch.float64:
+        u, g, gamma = u.double(), g.double(), gamma.double()
+        C = tproblem.Box(C.lower.double(), C.upper.double())
+        lb = lb._replace(S=lb.S.double(), Y=lb.Y.double(),
+                         rho=lb.rho.double())
+    taus = (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0)
+    before = tpanoc.direction.launches
+    got = tpanoc.direction(u, g, gamma, C, lb, 1e5, taus)
+    ref = tpanoc.direction_reference(u, g, gamma, C, lb, 1e5, taus)
+    assert tpanoc.direction.launches == before
+    assert got.cands.dtype == dtype and got.cands.shape == (9, 5, 5)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
