@@ -62,6 +62,12 @@ class AlmResult(NamedTuple):
     trace: Any = None                         # AlmTrace when alm_cfg.trace
     inner_trace: Any = None                   # PanocTrace of the last solve
     stats: Optional[SolveStats] = None        # trips, waits of every solve
+    # each lane's last inner solve: its step size and the multipliers and
+    # penalties it minimised under (``lam`` and ``sigma`` are the updated
+    # ones, and the carry's ``gamma`` is reset to 0 on the general path)
+    inner_gamma: Optional[torch.Tensor] = None    # (B,)
+    inner_lam: Optional[torch.Tensor] = None      # (B, m)
+    inner_sigma: Optional[torch.Tensor] = None    # (B, m)
 
 
 class _OuterState(NamedTuple):
@@ -77,6 +83,9 @@ class _OuterState(NamedTuple):
     failures: torch.Tensor
     converged: torch.Tensor
     violation: torch.Tensor
+    inner_gamma: torch.Tensor
+    inner_lam: torch.Tensor
+    inner_sigma: torch.Tensor
     trace: Any = None
     inner_trace: Any = None
 
@@ -128,7 +137,8 @@ def _make_fast_path(problem, alm_cfg, panoc_cfg, group):
                                              device=u0.device),
             inner_convergence_failures=(~res.converged).to(torch.int32),
             sigma=sigma, gamma=res.gamma, inner_trace=res.trace,
-            stats=res.stats)
+            stats=res.stats._replace(outer_passes=1),
+            inner_gamma=res.gamma, inner_lam=lam0, inner_sigma=sigma)
 
     solve.fan_graph = panoc.fan_graph
     return solve
@@ -217,9 +227,9 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
             inanbuf = torch.full((B, panoc_cfg.max_iter), float("nan"),
                                  dtype=dtype, device=device)
             itr0 = PanocTrace(*(inanbuf.clone() for _ in PanocTrace._fields))
+        gamma_init = torch.where(warm, gamma_in, zero)
         st = _OuterState(
-            u=u0, lam=lam0.to(dtype), sigma=sigma_init,
-            gamma=torch.where(warm, gamma_in, zero),
+            u=u0, lam=lam0.to(dtype), sigma=sigma_init, gamma=gamma_init,
             eps_k=torch.where(warm, torch.full_like(zero, alm_cfg.eps),
                               torch.full_like(zero, alm_cfg.eps_0)),
             e_prev=torch.full((B, m), float("inf"), dtype=dtype,
@@ -227,21 +237,16 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
             psi=zero, outer=izero, inner_total=izero, failures=izero,
             converged=skip,
             violation=torch.full_like(zero, float("inf")),
-            trace=tr0, inner_trace=itr0)
+            inner_gamma=gamma_init, inner_lam=lam0.to(dtype),
+            inner_sigma=sigma_init, trace=tr0, inner_trace=itr0)
         lanes = torch.arange(B, device=device)
 
         def cond(st):
             return (~st.converged) & (st.outer < alm_cfg.max_iter)
 
-        def outer(st, active):
-            """One outer iteration on the ``active`` lanes: ``(state,
-            PANOC's stats)``."""
-            # lanes that are done converge at once; their result is dropped
-            tol_k = torch.where(active, st.eps_k,
-                                torch.full_like(st.eps_k, float("inf")))
-            res = panoc(st.u, tol_k, (param, st.lam, st.sigma),
-                        gamma_init=st.gamma)
-
+        def _update(st, active, res):
+            """The state after the inner solve ``res`` on the ``active``
+            lanes."""
             r, e = al_terms(problem.constraints(res.u, param), st.lam,
                             st.sigma)
             viol = e.abs().amax(dim=1)
@@ -283,14 +288,26 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
                 outer=st.outer + 1,
                 inner_total=st.inner_total + res.iterations,
                 failures=st.failures + (~res.converged).to(torch.int32),
-                converged=done, violation=viol, trace=tr,
+                converged=done, violation=viol, inner_gamma=res.gamma,
+                inner_lam=st.lam, inner_sigma=st.sigma, trace=tr,
                 inner_trace=res.trace if panoc_cfg.trace else None)
-            return _where(active, st_new, st), res.stats
+            return _where(active, st_new, st)
+
+        def outer(st, active):
+            """One outer iteration on the ``active`` lanes: ``(state,
+            PANOC's stats)``."""
+            # lanes that are done converge at once; their result is dropped
+            tol_k = torch.where(active, st.eps_k,
+                                torch.full_like(st.eps_k, float("inf")))
+            res = panoc(st.u, tol_k, (param, st.lam, st.sigma),
+                        gamma_init=st.gamma)
+            with span("alm.update"):
+                return _update(st, active, res), res.stats
 
         # the stats: PANOC's trips and waits summed over the outer
-        # iterations, with the outer loop's own all-lanes-done waits, and
-        # this solve's own host seconds
-        trips, sync_wait_s = 0, 0.0
+        # iterations, with the outer loop's own all-lanes-done waits, this
+        # solve's own host seconds and its passes
+        trips, sync_wait_s, passes = 0, 0.0, 0
         while True:
             active = cond(st)
             t0 = time.perf_counter()
@@ -302,6 +319,7 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
                 st, inner = outer(st, active)
             trips += inner.trips
             sync_wait_s += inner.sync_wait_s
+            passes += 1
 
         return AlmResult(
             u=st.u, lam=st.lam, psi=st.psi, converged=st.converged,
@@ -312,7 +330,9 @@ def _make_general_path(problem, alm_cfg, panoc_cfg, group):
             gamma=torch.where(skip, gamma_in, st.gamma),
             trace=st.trace, inner_trace=st.inner_trace,
             stats=SolveStats(trips, time.perf_counter() - t_entry,
-                             sync_wait_s))
+                             sync_wait_s, passes),
+            inner_gamma=st.inner_gamma, inner_lam=st.inner_lam,
+            inner_sigma=st.inner_sigma)
 
     solve.fan_graph = panoc.fan_graph
     return solve

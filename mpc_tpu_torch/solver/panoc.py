@@ -283,11 +283,14 @@ class SolveStats(NamedTuple):
     ``trips``, the masked iterations the loop ran over the whole batch
     (``_CHUNK`` a chunk, however few lanes were still active); ``loop_s``,
     host seconds from the solve's entry to its return; ``sync_wait_s``,
-    host seconds inside the all-lanes-done checks, blocked on the device.
+    host seconds inside the all-lanes-done checks, blocked on the device;
+    ``outer_passes``, the ALM outer loop's passes (``solver/alm.py``: 1 on
+    its fast path; None on a bare PANOC solve).
     """
     trips: int
     loop_s: float
     sync_wait_s: float
+    outer_passes: Optional[int] = None
 
 
 class PanocResult(NamedTuple):

@@ -26,16 +26,18 @@ import torch.autograd.profiler as _autograd_profiler
 
 #: the solve path's spans, outermost first: ``mpc.step`` (a controller
 #: step), ``alm.solve`` (param_prep and the solve), ``alm.outer`` (one
-#: outer iteration of the ALM general path), ``panoc.init`` (the
-#: projection and the Lipschitz pair's fan), ``panoc.sync`` (the
-#: all-lanes-done check), ``panoc.chunk`` (``_CHUNK`` masked trips); inside
-#: a trip ``panoc.direction`` (the residual, the L-BFGS two-loop and the
-#: trust cap), ``panoc.fan`` (the candidates and the fan's call) and
+#: outer iteration of the ALM general path) and inside it ``alm.update``
+#: (the constraints at the inner solve's plan, the multiplier and penalty
+#: update and the masked select), ``panoc.init`` (the projection and the
+#: Lipschitz pair's fan), ``panoc.sync`` (the all-lanes-done check),
+#: ``panoc.chunk`` (``_CHUNK`` masked trips); inside a trip
+#: ``panoc.direction`` (the residual, the L-BFGS two-loop and the trust
+#: cap), ``panoc.fan`` (the candidates and the fan's call) and
 #: ``panoc.accept`` (QUB, FBE pick, L-BFGS push and the masked selects);
 #: ``panoc.final`` (the criterion's refresh and the stagnation acceptance)
-SPANS = ("mpc.step", "alm.solve", "alm.outer", "panoc.init", "panoc.sync",
-         "panoc.chunk", "panoc.direction", "panoc.fan", "panoc.accept",
-         "panoc.final")
+SPANS = ("mpc.step", "alm.solve", "alm.outer", "alm.update", "panoc.init",
+         "panoc.sync", "panoc.chunk", "panoc.direction", "panoc.fan",
+         "panoc.accept", "panoc.final")
 #: the owner of device work issued while no span was open
 OUTSIDE = "(outside the controller)"
 #: the owner of kernels whose launch the trace lacks

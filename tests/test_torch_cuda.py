@@ -254,6 +254,52 @@ def test_al_kernel_matches_plain_version(cuda, E, log_sigma, out_of_box):
                    0.01 if out_of_box or E > 100 else 0.0)
 
 
+class _Captured(Exception):
+    """Ends a step once the fan calls it was run for are captured."""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4096, 8192])
+def test_al_kernel_matches_plain_version_on_the_constrained_cell(
+        cuda, monkeypatch, batch):
+    # K3 at the benchmark cell constrained_n40.lanechange_b4096's shapes,
+    # and at twice its batch (E = 2 B for the Lipschitz pair, 5 B a trip;
+    # N = 40, the lane-change Bezier road), on the fans of the cell's first
+    # cold step
+    from benchmark.core import spec, window
+    cell = spec.cell("constrained_n40.lanechange_b4096")
+    cell.traffic["batch"] = batch
+    program = cell.program()
+    program.set_precision(cell.cfg)
+    prog = program.build(cell.cfg, cell.traffic, "cuda")
+    shared, lanes = window.inputs(cell, 11, "cuda")
+    calls, kernel = [], fp.al_fan_value_and_grad
+
+    def capture(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        if len(calls) == 4:
+            raise _Captured
+        # the wrapper counts its launches on the module's name
+        setattr(fp, "al_fan_value_and_grad", kernel)
+        try:
+            return kernel(*args)
+        finally:
+            setattr(fp, "al_fan_value_and_grad", capture)
+
+    monkeypatch.setattr(fp, "al_fan_value_and_grad", capture)
+    with pytest.raises(_Captured):
+        prog.step(prog.init_carry(batch), lanes["y0"], shared)
+    monkeypatch.setattr(fp, "al_fan_value_and_grad", kernel)
+    assert [c[0].shape[0] for c in calls] == [2 * batch] + [5 * batch] * 3
+    for u, y0, cltab, pvec, *rest in calls:
+        al, args = tuple(rest[:5]), tuple(rest[5:])
+        r = _check_variant(f"K3 cell E={u.shape[0]}", kernel,
+                           lambda: kernel(u, y0, cltab, pvec, *al, *args),
+                           u, y0, cltab, pvec, args, "pacejka", al, 0.01)
+        assert r["lanes"] == u.shape[0]
+
+
 @pytest.mark.cuda
 def test_variant_wrappers_raise_instead_of_falling_back(cuda):
     # On a CUDA tensor the K2 and K3 wrappers launch their kernel or raise;
@@ -612,7 +658,9 @@ TAUS = (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0)
     (16384, 24, 12, True, 1e5), (32768, 40, 20, True, 1e5),
     (1001, 80, 40, True, 1e5), (256, 122, 40, True, 1e5),
     (37, 128, 48, True, 1e5), (999, 24, 12, False, 1e5),
-    (515, 40, 20, True, 0.05)])
+    (515, 40, 20, True, 0.05),
+    # the constrained benchmark cell's shape (K = 3 at a fleet's batch)
+    (8192, 80, 40, True, 1e5), (4096, 80, 40, True, 1e5)])
 def test_direction_kernel_matches_plain_version(cuda, B, n, M, bounded,
                                                 tr_mult):
     # every ring state (empty, partly valid, wrapped, stale slots) and a
