@@ -4,7 +4,8 @@
     python3 chip_smoke.py --timing
 
 It drives the port's thirteen paths. Four go each through its own fan kernel
-of csrc/fused_psi.cu, all instances of one phased kernel: the headline
+of csrc/fused_psi.cu (K1 and K2 instances of one phased kernel, K3 the same
+phases as three kernels through a device scratch): the headline
 (Pacejka, N=12; K1), config 1 (the kinematic bicycle, N=20; K2), ss_n40
 (bounded state constraints through the ALM general path, N=40; K3) and
 config 5 (the randomized scenario suite, one road per lane; K1 at a road
@@ -70,7 +71,10 @@ fails the run with a nonzero exit:
    32,768, 40, 20) on drawn rings of every state with a NaN-gradient lane,
    held against its plain version by ``compare_direction`` (kernels/
    check.py: the same float64 rule), timed with its plain version as in
-   phase 4, and its byte bound (``direction_bound``);
+   phase 4, and its byte bound (``direction_bound``). K3 is also checked
+   as in phase 3, then timed alone, on drawn inputs at the constrained
+   benchmark cell's fan sizes (E = 8,192, 20,480 and 40,960 at N=40 on the
+   lane-change road, penalties over [1e-1, 1e3]);
 5. the LQT solves (mpc_tpu_torch/solver/lqr.py), sequential and parallel
    scan, at config 2's backward shapes (N=40, n=6, m=2; B=256 and B=1) on
    drawn well-posed problems with the cross term, each held against the
@@ -1622,6 +1626,8 @@ class Kernel(NamedTuple):
     min_conv: float      # the path's least mean converged fraction
     count: str = "launches"   # the wrapper's count of this kernel's launches
     paths: tuple = ()    # the paths (bench cells) that launch it
+    timed_E: tuple = ()  # further sizes on drawn inputs: checked, then
+                         # timed (the kernel alone)
 
 
 KERNELS = (
@@ -1644,7 +1650,8 @@ KERNELS = (
            "pacejka", True, "SS_N40", 40, 6,
            tuple((E, "lane change", {}, ls) for E in (1, 37, 1280)
                  for ls in ((-1, 3), (3, 9))),
-           200, (Capture("SS_N40", 2, (1280, 512)),), K3_MAX_CALLS, 5, 0.98),
+           200, (Capture("SS_N40", 2, (1280, 512)),), K3_MAX_CALLS, 5, 0.98,
+           timed_E=(8192, 20480, 40960)),
     # lanes per road K = 1 (a road for every lane, the most roads a block
     # stages), 5 (a candidate fan) and 2 (an init pair); config 5's
     # straggler tier gives further sizes, 5 and 2 x 64 x 2^j
@@ -1753,6 +1760,24 @@ def kernel_phase(k, fp, bench, info, timing=False):
             + (f" sigma in 1e{log_sigma}" if k.al else "")
         reports.append(check(tag, psi, grad, u, y0, cltab, pvec, fan_args,
                              model=k.model, al=al))
+    # the further sizes, on drawn inputs on the first drawn road: checked
+    # here with the drawn ones, timed below
+    sized = []
+    for i, E in enumerate(k.timed_E):
+        u, y0, cl = drawn_inputs(E, k.n_horiz, k.sd, k.drawn[0][1],
+                                 seed=k.seed + 50 + i)
+        cltab, pvec = fp.fan_params(cl, VehicleParams())
+        al = drawn_al(E, k.n_horiz, (-1, 3), seed=k.seed + 150 + i) \
+            if k.al else None
+        sized.append((E, (u, y0, cltab, pvec, *(al or ()), *fan_args)))
+        if timing:
+            continue
+        psi, grad = wrapper(*sized[-1][1])
+        torch.cuda.synchronize()
+        reports.append(check(f"{k.label} E={E} drawn {k.drawn[0][1]}"
+                             + (" sigma in 1e(-1, 3)" if k.al else ""),
+                             psi, grad, u, y0, cltab, pvec, fan_args,
+                             model=k.model, al=al))
 
     timed = None
     for source in k.captures[:1] if timing else k.captures:
@@ -1820,6 +1845,16 @@ def kernel_phase(k, fp, bench, info, timing=False):
         if E == source.shapes[0]:
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
+    for E, args in sized:
+        ms, _ = time_pair(f"{k.label} E={E} drawn", lambda: wrapper(*args),
+                          None, 0, info)
+        psi, grad = wrapper(*args)
+        bound_ms = fan_bound(k.model, k.al, E, k.n_horiz, SUBSTEPS,
+                             args[2].shape[-2], list(args[:-len(fan_args)]),
+                             [psi, grad])[0]
+        print(f"bound {k.label} E={E} drawn: {bound_ms:.5f} ms; kernel at "
+              f"{bound_ms / ms:.2%} of it")
+        out["ms_by_E"][E] = ms
     out["single_lane_ms"], out["serial_chain_ms"] = serial_chain(
         k, wrapper, fp, info)
     return out

@@ -2,8 +2,10 @@
 // N-stage tracking cost at E independent evaluation lanes.
 //
 // Replaces: mpc_tpu/ops/fused_psi.py:_eval_pallas (the TPU Pallas kernel) in
-// its three variants, all instances of the phased kernel
-// fused_psi_fan_phased<model, AL>:
+// its three variants, K1 and K2 instances of the phased kernel
+// fused_psi_fan_phased<model>, K3 the same algorithm in three kernels
+// that hand on through a device scratch (fused_psi_fan_rollout, _stages,
+// _adjoint; see "K3 through a device scratch" below):
 //   K1  model="pacejka", no augmented-Lagrangian term   (mpc_fused_psi_fan)
 //   K2  model="simplified", the kinematic bicycle        (mpc_fused_psi_fan_kin)
 //   K3  model="pacejka" with the AL term of the bounded  (mpc_fused_psi_fan_al)
@@ -25,10 +27,11 @@
 // lanes apart from the centerline table, the parameters and K3's constraint
 // bounds, and no matrix product, so tensor cores are irrelevant.
 //
-// What the phased design does about it. One block holds L lanes (L picked
-// by the launcher so that the grid has at least one block per SM) and
-// PH_THREADS threads, and runs three phases, with everything a phase hands
-// on in dynamic shared memory:
+// What the phased design does about it (K3 runs the same three phases as
+// three kernels, below). One block holds L lanes (L picked by the launcher
+// so that the grid has at least one block per SM) and PH_THREADS threads,
+// and runs three phases, with everything a phase hands on in dynamic shared
+// memory:
 // 1. one thread per lane rolls out the states and stores the N + 1 stage
 //    boundary states, nothing else: this is the only chain that is serial
 //    by nature. The model's per-stage constants (M::Stage: cos and sin of
@@ -37,7 +40,7 @@
 //    instead of in each of its 4 x substeps evaluations;
 // 2. all threads of the block, over the block's (lane, stage) pairs, each
 //    independent given the stored states: from the stage's end state the
-//    nearest centerline point, the stage cost, its state gradient and, for
+//    nearest centerline point, the stage cost, its state gradient and, in
 //    K3, the penalties and their gradient sigma r 2 x_i; from its start
 //    state the stage recomputed with its Jacobian in forward mode: the
 //    derivatives of the end state along sd columns, the start state's
@@ -474,7 +477,7 @@ __device__ __forceinline__ float al_residual(float xi, float off, float lam,
 }
 
 // ---------------------------------------------------------------------------
-// The phased kernel (K1, K2, K3)
+// The phased kernel (K1, K2)
 // ---------------------------------------------------------------------------
 
 // Offsets (in floats) of one block's dynamic shared memory. A (lane, stage)
@@ -482,7 +485,7 @@ __device__ __forceinline__ float al_residual(float xi, float off, float lam,
 // odd so that the lanes of a warp in phases 1 and 3 hit distinct banks.
 struct PhLayout {
     int np, xp;
-    size_t cl, p, off, lo, up, u, x, T, g, cost, pen, total;
+    size_t cl, p, u, x, T, g, cost, total;
 };
 
 // The most roads a block of L lanes reads at road stride rs (0: shared).
@@ -490,26 +493,21 @@ __host__ __device__ __forceinline__ int ph_roads(int L, int rs) {
     return rs > 0 ? (L - 1) / rs + 2 : 1;
 }
 
-__host__ __device__ __forceinline__ PhLayout ph_layout(int sd, bool al, int L,
+__host__ __device__ __forceinline__ PhLayout ph_layout(int sd, int L,
                                                        int n_horiz, int n_cl,
                                                        int rs) {
     PhLayout y;
-    const size_t m = al ? (size_t)sd * n_horiz : 0;
     y.np = n_horiz | 1;
     y.xp = (n_horiz + 1) | 1;
     const size_t pairs = (size_t)L * y.np;
     y.cl = 0;                                   // centerline tables, n_cl x 6 each
     y.p = y.cl + (size_t)ph_roads(L, rs) * n_cl * 6;  // parameters
-    y.off = y.p + N_PARAMS;                     // AL: offsets (sd)
-    y.lo = y.off + (al ? sd : 0);               // AL: d_lo (m)
-    y.up = y.lo + m;                            // AL: d_up (m)
-    y.u = y.up + m;                             // inputs, then the gradient
+    y.u = y.p + N_PARAMS;                       // inputs, then the gradient
     y.x = y.u + (size_t)L * 2 * n_horiz;        // boundary states, sd planes
     y.T = y.x + (size_t)sd * L * y.xp;          // Jacobian columns, sd x sd planes
     y.g = y.T + (size_t)sd * sd * pairs;        // stage state gradients, sd planes
     y.cost = y.g + (size_t)sd * pairs;          // stage costs
-    y.pen = y.cost + pairs;                     // AL: penalties, sd planes
-    y.total = y.pen + (al ? (size_t)sd * pairs : 0);
+    y.total = y.cost + pairs;
     return y;
 }
 
@@ -578,35 +576,25 @@ __device__ __forceinline__ void stage_jacobian(const float xs[M::SD], float d,
     }
 }
 
-// lam, sig (E, m) and off (SD,), lo, up (m,) are read only when AL is true.
 // cltab is one (n_cl, 6) table at road stride rs = 0, else (R, n_cl, 6) with
 // lane e on road e / rs.
-template <class M, bool AL>
+template <class M>
 __global__ void __launch_bounds__(PH_THREADS)
 fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
                      const float* __restrict__ cltab,
-                     const float* __restrict__ pvec,
-                     const float* __restrict__ lam,
-                     const float* __restrict__ sig,
-                     const float* __restrict__ off,
-                     const float* __restrict__ lo,
-                     const float* __restrict__ up, float* __restrict__ psi,
+                     const float* __restrict__ pvec, float* __restrict__ psi,
                      float* __restrict__ grad, int E, Cfg c, int L, int rs) {
     constexpr int SD = M::SD, NX = SD - 2;
-    const int N = c.n_horiz, n2 = 2 * N, m = SD * N;
-    const PhLayout y = ph_layout(SD, AL, L, N, c.n_cl, rs);
+    const int N = c.n_horiz, n2 = 2 * N;
+    const PhLayout y = ph_layout(SD, L, N, c.n_cl, rs);
     extern __shared__ float smem[];
     float* s_cl = smem + y.cl;
     float* s_p = smem + y.p;
-    float* s_off = smem + y.off;
-    float* s_lo = smem + y.lo;
-    float* s_up = smem + y.up;
     float* s_u = smem + y.u;
     float* s_x = smem + y.x;
     float* s_T = smem + y.T;
     float* s_g = smem + y.g;
     float* s_cost = smem + y.cost;
-    float* s_pen = smem + y.pen;
     const int LX = L * y.xp, LP = L * y.np;   // plane strides
     const int tid = threadIdx.x;
     const int e0 = blockIdx.x * L;
@@ -618,13 +606,6 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
     for (int i = tid; i < nr * tab; i += PH_THREADS)
         s_cl[i] = cltab[(size_t)r0 * tab + i];
     for (int i = tid; i < N_PARAMS; i += PH_THREADS) s_p[i] = pvec[i];
-    if (AL) {
-        for (int i = tid; i < SD; i += PH_THREADS) s_off[i] = off[i];
-        for (int i = tid; i < m; i += PH_THREADS) {
-            s_lo[i] = lo[i];
-            s_up[i] = up[i];
-        }
-    }
     for (int i = tid; i < nl * n2; i += PH_THREADS) s_u[i] = u[(size_t)e0 * n2 + i];
     __syncthreads();
     const Par p = load_par(s_p);
@@ -665,19 +646,6 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
         const float* cl = rs > 0 ? s_cl + ((e0 + l) / rs - r0) * tab : s_cl;
         const int j = nearest(xe[0], xe[1], cl, c.n_cl);
         s_cost[pi] = stage_cost<M>(xe, d, dl, cl + 6 * j, c, g);
-        if (AL) {
-            // the penalties 0.5 sigma r^2, each rounded as the plain version
-            // rounds it; d/dx_i = sigma r 2 x_i
-            const size_t b = (size_t)(e0 + l) * m + (size_t)k * SD;
-#pragma unroll
-            for (int i = 0; i < SD; ++i) {
-                const float sg = sig[b + i];
-                const float r = al_residual(xe[i], s_off[i], lam[b + i], sg,
-                                            s_lo[k * SD + i], s_up[k * SD + i]);
-                s_pen[i * LP + pi] = (0.5f * sg) * (r * r);
-                g[i] += sg * r * (2.f * xe[i]);
-            }
-        }
 #pragma unroll
         for (int i = 0; i < SD; ++i) s_g[i * LP + pi] = g[i];
         // the stage's Jacobian from its start state
@@ -694,14 +662,7 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
     if (tid < nl) {
         const int l = tid;
         float tot = 0.f;
-        for (int k = 0; k < N; ++k) {
-            const int pi = l * y.np + k;
-            tot += s_cost[pi];
-            if (AL) {
-#pragma unroll
-                for (int i = 0; i < SD; ++i) tot += s_pen[i * LP + pi];
-            }
-        }
+        for (int k = 0; k < N; ++k) tot += s_cost[l * y.np + k];
         psi[e0 + l] = tot;
         float* ul = s_u + l * n2;
         float a[SD];
@@ -736,6 +697,261 @@ fused_psi_fan_phased(const float* __restrict__ u, const float* __restrict__ y0,
 }
 
 // ---------------------------------------------------------------------------
+// K3 through a device scratch: the rollout, the stage terms, the adjoint
+// ---------------------------------------------------------------------------
+//
+// The phased kernel keeps what its phases hand on in shared memory. At K3's
+// N = 40 that is 2,335 floats a lane, most of it the Jacobian planes, so a
+// block would take 16 lanes and an SM one block: the card would run the fan
+// as waves of 16 lanes an SM, each wave one lane's serial chain long. K3
+// runs the phases as three kernels instead, launched in turn on one stream,
+// that hand on through a scratch in device memory which the wrapper
+// allocates: planes of `pitch` floats, one value a lane each (lane-minor,
+// so that neighbouring threads touch neighbouring addresses). Residency
+// then no longer caps the lanes in flight: every lane's rollout runs at
+// once, and the stage terms run one thread a (lane, stage) pair over the
+// whole card. Each kernel runs its phase's code as the phased kernel does,
+// through the same device functions in the same order, so the values are
+// the same bits.
+//   fused_psi_fan_rollout  a warp a block, a thread a lane: the N + 1
+//                          boundary states;
+//   fused_psi_fan_stages   a thread a (lane, stage) pair, pair q = k E + e:
+//                          the nearest point, the stage cost and its state
+//                          gradient, the penalties and their gradient, the
+//                          stage Jacobian; the road, the parameters and the
+//                          bounds staged in its block's shared memory;
+//   fused_psi_fan_adjoint  a warp a block, a thread a lane: psi in the
+//                          plain version's order, the adjoint, the gradient.
+// The two lane kernels stage their block's controls in shared memory, the
+// rollout the parameters too, as the phased kernel's phases 1 and 3 read
+// them; the adjoint loads a stage's Jacobian and state gradient while it
+// works on the stage after, and writes the gradient out through shared
+// memory in one coalesced pass.
+// The scratch (scratch_layout): groups of planes in this order, with the
+// plane index within each group:
+//   x     (N + 1) sd   boundary state k, component i: k sd + i
+//   T     N sd sd      stage k, column j, component r: (k sd + j) sd + r
+//   g     N sd         stage k's state gradient, component i: k sd + i
+//   cost  N            stage k's cost: k
+//   pen   N sd         stage k's penalty of component i: k sd + i
+// 55 N + 6 planes in all at sd = 6 (ops/fused_psi.py:al_scratch_floats).
+
+#define FAN_LANES 32          // the lane kernels: a thread a lane, a warp a block
+#define FAN_PAIR_THREADS 128  // the stage terms: a thread a (lane, stage) pair
+// Blocks of the stage terms an SM must hold at once: a register cap of 168
+// a thread, against 211 uncapped (two blocks an SM), for 12 warps an SM in
+// place of 8; it spills a little and times 10-13% faster at E = 20,480 and
+// 40,960 with the same bits (H100, 700 W).
+#define FAN_PAIR_MIN_BLOCKS 3
+
+struct Scratch {
+    long long pitch;                      // floats from one plane to the next
+    long long x, T, g, cost, pen, total;  // each group's first float; in all
+};
+
+// The scratch for E lanes at horizon N: a plane holds E floats rounded up
+// to 32, so that each starts a multiple of 128 bytes from the first.
+static Scratch scratch_layout(int sd, int E, int N) {
+    Scratch s;
+    s.pitch = ((long long)E + 31) / 32 * 32;
+    s.x = 0;
+    s.T = s.x + (long long)sd * (N + 1) * s.pitch;
+    s.g = s.T + (long long)sd * sd * N * s.pitch;
+    s.cost = s.g + (long long)sd * N * s.pitch;
+    s.pen = s.cost + (long long)N * s.pitch;
+    s.total = s.pen + (long long)sd * N * s.pitch;
+    return s;
+}
+
+// A lane kernel's block of lanes e0 .. e0 + nl - 1: their controls (n2 a
+// lane) into s_u, column i of lane l at i * (FAN_LANES + 1) + l, so that a
+// warp reading one column for its lanes, or storing one lane's consecutive
+// columns, touches 32 banks.
+__device__ __forceinline__ void stage_controls(const float* __restrict__ u,
+                                               int e0, int nl, int n2,
+                                               float* s_u) {
+    for (int i = threadIdx.x; i < nl * n2; i += FAN_LANES) {
+        const int l = i / n2;
+        s_u[(i - l * n2) * (FAN_LANES + 1) + l] = u[(size_t)e0 * n2 + i];
+    }
+}
+
+template <class M>
+__global__ void __launch_bounds__(FAN_LANES)
+fused_psi_fan_rollout(const float* __restrict__ u, const float* __restrict__ y0,
+                      const float* __restrict__ pvec, float* __restrict__ scr,
+                      Scratch s, int E, Cfg c) {
+    constexpr int SD = M::SD, UP = FAN_LANES + 1;
+    const int N = c.n_horiz, n2 = 2 * N;
+    extern __shared__ float smem[];
+    float* s_p = smem;
+    float* s_u = smem + N_PARAMS;
+    const int l = threadIdx.x, e0 = blockIdx.x * FAN_LANES;
+    const int nl = min(FAN_LANES, E - e0);
+    for (int i = l; i < N_PARAMS; i += FAN_LANES) s_p[i] = pvec[i];
+    stage_controls(u, e0, nl, n2, s_u);
+    __syncthreads();
+    if (l >= nl) return;
+    const Par p = load_par(s_p);
+    float x[SD];
+#pragma unroll
+    for (int i = 0; i < SD; ++i) x[i] = y0[(size_t)(e0 + l) * SD + i];
+    float* xo = scr + s.x + e0 + l;
+#pragma unroll
+    for (int i = 0; i < SD; ++i) xo[i * s.pitch] = x[i];
+    for (int k = 0; k < N; ++k) {
+        const float d = s_u[2 * k * UP + l], dl = s_u[(2 * k + 1) * UP + l];
+        const typename M::Stage st = M::stage(dl, p);
+        for (int j = 0; j < c.substeps; ++j) rk4_step<M>(x, d, dl, st, p, c);
+#pragma unroll
+        for (int i = 0; i < SD; ++i) xo[((k + 1) * SD + i) * s.pitch] = x[i];
+    }
+}
+
+// lam, sig (E, m), off (SD,), lo, up (m,): the penalties' operands.
+template <class M>
+__global__ void __launch_bounds__(FAN_PAIR_THREADS, FAN_PAIR_MIN_BLOCKS)
+fused_psi_fan_stages(const float* __restrict__ u,
+                     const float* __restrict__ cltab,
+                     const float* __restrict__ pvec,
+                     const float* __restrict__ lam,
+                     const float* __restrict__ sig,
+                     const float* __restrict__ off,
+                     const float* __restrict__ lo,
+                     const float* __restrict__ up, float* __restrict__ scr,
+                     Scratch s, int E, Cfg c) {
+    constexpr int SD = M::SD;
+    const int N = c.n_horiz, n2 = 2 * N, m = SD * N;
+    const int tab = c.n_cl * 6;
+    extern __shared__ float smem[];
+    float* s_cl = smem;
+    float* s_p = s_cl + tab;
+    float* s_off = s_p + N_PARAMS;
+    float* s_lo = s_off + SD;
+    float* s_up = s_lo + m;
+    const int tid = threadIdx.x;
+    for (int i = tid; i < tab; i += blockDim.x) s_cl[i] = cltab[i];
+    for (int i = tid; i < N_PARAMS; i += blockDim.x) s_p[i] = pvec[i];
+    for (int i = tid; i < SD; i += blockDim.x) s_off[i] = off[i];
+    for (int i = tid; i < m; i += blockDim.x) {
+        s_lo[i] = lo[i];
+        s_up[i] = up[i];
+    }
+    __syncthreads();
+    const long long q = (long long)blockIdx.x * blockDim.x + tid;
+    if (q >= (long long)E * N) return;
+    const Par p = load_par(s_p);
+    const int k = (int)(q / E), e = (int)(q - (long long)k * E);
+    const float d = u[(size_t)e * n2 + 2 * k], dl = u[(size_t)e * n2 + 2 * k + 1];
+    const float* xl = scr + s.x + (long long)k * SD * s.pitch + e;
+    float xs[SD], xe[SD], g[SD];
+#pragma unroll
+    for (int i = 0; i < SD; ++i) {
+        xs[i] = xl[i * s.pitch];
+        xe[i] = xl[(SD + i) * s.pitch];
+        g[i] = 0.f;
+    }
+    // the stage cost and its gradient at the end state
+    const int j = nearest(xe[0], xe[1], s_cl, c.n_cl);
+    scr[s.cost + k * s.pitch + e] = stage_cost<M>(xe, d, dl, s_cl + 6 * j, c, g);
+    // the penalties 0.5 sigma r^2, each rounded as the plain version rounds
+    // it; d/dx_i = sigma r 2 x_i
+    const size_t b = (size_t)e * m + (size_t)k * SD;
+#pragma unroll
+    for (int i = 0; i < SD; ++i) {
+        const float sg = sig[b + i];
+        const float r = al_residual(xe[i], s_off[i], lam[b + i], sg,
+                                    s_lo[k * SD + i], s_up[k * SD + i]);
+        scr[s.pen + (k * SD + i) * s.pitch + e] = (0.5f * sg) * (r * r);
+        g[i] += sg * r * (2.f * xe[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < SD; ++i) scr[s.g + (k * SD + i) * s.pitch + e] = g[i];
+    // the stage's Jacobian from its start state
+    float T[SD][SD];
+    stage_jacobian<M>(xs, d, dl, p, c, T);
+    float* To = scr + s.T + (long long)k * SD * SD * s.pitch + e;
+#pragma unroll
+    for (int jj = 0; jj < SD; ++jj)
+#pragma unroll
+        for (int r = 0; r < SD; ++r) To[(jj * SD + r) * s.pitch] = T[jj][r];
+}
+
+// Stage k's Jacobian columns T[j sd + r] and state gradient g of the lane
+// whose value of the scratch's first plane is at se.
+template <int SD>
+__device__ __forceinline__ void load_stage(const float* __restrict__ se,
+                                           const Scratch& s, int k,
+                                           float T[SD * SD], float g[SD]) {
+#pragma unroll
+    for (int i = 0; i < SD * SD; ++i) T[i] = se[s.T + (k * SD * SD + i) * s.pitch];
+#pragma unroll
+    for (int i = 0; i < SD; ++i) g[i] = se[s.g + (k * SD + i) * s.pitch];
+}
+
+template <class M>
+__global__ void __launch_bounds__(FAN_LANES)
+fused_psi_fan_adjoint(const float* __restrict__ u,
+                      const float* __restrict__ scr, Scratch s,
+                      float* __restrict__ psi, float* __restrict__ grad, int E,
+                      Cfg c) {
+    constexpr int SD = M::SD, NX = SD - 2, UP = FAN_LANES + 1;
+    const int N = c.n_horiz, n2 = 2 * N;
+    extern __shared__ float smem[];
+    float* s_u = smem;
+    const int l = threadIdx.x, e0 = blockIdx.x * FAN_LANES;
+    const int nl = min(FAN_LANES, E - e0);
+    stage_controls(u, e0, nl, n2, s_u);
+    __syncthreads();
+    if (l < nl) {
+        const float* se = scr + e0 + l;
+        float tot = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < N; ++k) {
+            tot += se[s.cost + k * s.pitch];
+#pragma unroll
+            for (int i = 0; i < SD; ++i) tot += se[s.pen + (k * SD + i) * s.pitch];
+        }
+        psi[e0 + l] = tot;
+        float Tn[SD * SD], gn[SD], a[SD];
+        load_stage<SD>(se, s, N - 1, Tn, gn);
+#pragma unroll
+        for (int i = 0; i < SD; ++i) a[i] = 0.f;
+        for (int k = N - 1; k >= 0; --k) {
+            float Tk[SD * SD], v[SD];
+#pragma unroll
+            for (int i = 0; i < SD * SD; ++i) Tk[i] = Tn[i];
+#pragma unroll
+            for (int r = 0; r < SD; ++r) v[r] = a[r] + gn[r];
+            if (k > 0) load_stage<SD>(se, s, k - 1, Tn, gn);
+            float* uk = s_u + 2 * k * UP + l;   // d_k; delta_k a row on
+            float gd = 2.f * c.w[5] * uk[0], gdl = 2.f * c.w[4] * uk[UP];
+#pragma unroll
+            for (int r = 0; r < SD; ++r) {
+                gd = fmaf(Tk[NX * SD + r], v[r], gd);
+                gdl = fmaf(Tk[(NX + 1) * SD + r], v[r], gdl);
+            }
+            a[0] = v[0];
+            a[1] = v[1];
+#pragma unroll
+            for (int jj = 0; jj < NX; ++jj) {
+                float t = 0.f;
+#pragma unroll
+                for (int r = 0; r < SD; ++r) t = fmaf(Tk[jj * SD + r], v[r], t);
+                a[jj + 2] = t;
+            }
+            uk[0] = gd;
+            uk[UP] = gdl;
+        }
+    }
+    __syncthreads();
+    for (int i = l; i < nl * n2; i += FAN_LANES) {
+        const int ll = i / n2;
+        grad[(size_t)e0 * n2 + i] = s_u[(i - ll * n2) * UP + ll];
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -767,8 +983,8 @@ static bool valid_shape(int E, int n_horiz, int n_cl, int substeps) {
 // current device: the largest L <= PH_MAX_LANES whose grid has at least
 // one block per SM (L = 1 where E is too small for that) and
 // whose shared memory fits the device's opt-in limit.
-static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int rs,
-                   int* lanes, size_t* smem) {
+static int ph_plan(int sd, int E, int n_horiz, int n_cl, int rs, int* lanes,
+                   size_t* smem) {
     if (!valid_shape(E, n_horiz, n_cl, 1) || rs < 0) return (int)cudaErrorInvalidValue;
     int dev, n_sm, smem_max;
     cudaError_t rc = cudaGetDevice(&dev);
@@ -780,7 +996,7 @@ static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int rs,
     if (rc != cudaSuccess) return (int)rc;
     for (int L = PH_MAX_LANES; L >= 1; L /= 2) {
         const size_t bytes =
-            ph_layout(sd, al, L, n_horiz, n_cl, rs).total * sizeof(float);
+            ph_layout(sd, L, n_horiz, n_cl, rs).total * sizeof(float);
         if (bytes > (size_t)smem_max) continue;
         if ((E + L - 1) / L >= n_sm || L == 1) {
             *lanes = L;
@@ -791,29 +1007,82 @@ static int ph_plan(int sd, bool al, int E, int n_horiz, int n_cl, int rs,
     return (int)cudaErrorInvalidValue;
 }
 
-template <class M, bool AL>
+template <class M>
 static int launch_phased(const float* u, const float* y0, const float* cltab,
-                         const float* pvec, const float* lam, const float* sig,
-                         const float* off, const float* lo, const float* up,
-                         float* psi, float* grad, int E, int n_horiz, int n_cl,
-                         int substeps, double h, float v_ref, float w0,
-                         float w1, float w2, float w3, float w4, float w5,
-                         int rs, void* stream) {
+                         const float* pvec, float* psi, float* grad, int E,
+                         int n_horiz, int n_cl, int substeps, double h,
+                         float v_ref, float w0, float w1, float w2, float w3,
+                         float w4, float w5, int rs, void* stream) {
     if (!valid_shape(E, n_horiz, n_cl, substeps)) return (int)cudaErrorInvalidValue;
     int L;
     size_t smem;
-    int rc = ph_plan(M::SD, AL, E, n_horiz, n_cl, rs, &L, &smem);
+    int rc = ph_plan(M::SD, E, n_horiz, n_cl, rs, &L, &smem);
     if (rc != 0) return rc;
     if (smem > 48 * 1024) {
-        rc = (int)cudaFuncSetAttribute(fused_psi_fan_phased<M, AL>,
+        rc = (int)cudaFuncSetAttribute(fused_psi_fan_phased<M>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
         if (rc != 0) return rc;
     }
     const Cfg c = make_cfg(n_horiz, n_cl, substeps, h, v_ref, w0, w1, w2, w3, w4, w5);
     const int grid = (E + L - 1) / L;
-    fused_psi_fan_phased<M, AL><<<grid, PH_THREADS, smem, (cudaStream_t)stream>>>(
-        u, y0, cltab, pvec, lam, sig, off, lo, up, psi, grad, E, c, L, rs);
+    fused_psi_fan_phased<M><<<grid, PH_THREADS, smem, (cudaStream_t)stream>>>(
+        u, y0, cltab, pvec, psi, grad, E, c, L, rs);
+    return (int)cudaGetLastError();
+}
+
+// K3's three kernels in turn on one stream, through scr, a device buffer of
+// scratch_floats floats. The stage terms' shared memory (the road table,
+// the parameters, the bounds) is opted in above 48 KB; cudaErrorInvalidValue
+// where it exceeds the device's limit, or where the buffer is smaller than
+// scratch_layout's.
+template <class M>
+static int launch_scratch(const float* u, const float* y0, const float* cltab,
+                          const float* pvec, const float* lam,
+                          const float* sig, const float* off, const float* lo,
+                          const float* up, float* psi, float* grad, float* scr,
+                          long long scratch_floats, int E, int n_horiz,
+                          int n_cl, int substeps, double h, float v_ref,
+                          float w0, float w1, float w2, float w3, float w4,
+                          float w5, void* stream) {
+    constexpr int SD = M::SD;
+    if (!valid_shape(E, n_horiz, n_cl, substeps)) return (int)cudaErrorInvalidValue;
+    const Scratch s = scratch_layout(SD, E, n_horiz);
+    const long long pairs = (long long)E * n_horiz;
+    const long long pair_blocks = (pairs + FAN_PAIR_THREADS - 1) / FAN_PAIR_THREADS;
+    if (scratch_floats < s.total || pair_blocks > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(n_cl * 6 + N_PARAMS + SD + 2 * SD * n_horiz)
+        * sizeof(float);
+    int rc = 0;
+    if (smem > 48 * 1024) {
+        int dev, smem_max;
+        rc = (int)cudaGetDevice(&dev);
+        if (rc == 0)
+            rc = (int)cudaDeviceGetAttribute(
+                &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (rc == 0 && smem > (size_t)smem_max) rc = (int)cudaErrorInvalidValue;
+        if (rc == 0)
+            rc = (int)cudaFuncSetAttribute(fused_psi_fan_stages<M>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+        if (rc != 0) return rc;
+    }
+    const Cfg c = make_cfg(n_horiz, n_cl, substeps, h, v_ref, w0, w1, w2, w3, w4, w5);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lane_blocks = (E + FAN_LANES - 1) / FAN_LANES;
+    const size_t u_bytes = (size_t)(FAN_LANES + 1) * 2 * n_horiz * sizeof(float);
+    fused_psi_fan_rollout<M><<<lane_blocks, FAN_LANES,
+                               N_PARAMS * sizeof(float) + u_bytes, st>>>(
+        u, y0, pvec, scr, s, E, c);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    fused_psi_fan_stages<M><<<(int)pair_blocks, FAN_PAIR_THREADS, smem, st>>>(
+        u, cltab, pvec, lam, sig, off, lo, up, scr, s, E, c);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    fused_psi_fan_adjoint<M><<<lane_blocks, FAN_LANES, u_bytes, st>>>(
+        u, scr, s, psi, grad, E, c);
     return (int)cudaGetLastError();
 }
 
@@ -833,11 +1102,9 @@ int mpc_fused_psi_fan(const float* u, const float* y0, const float* cltab,
                       float v_ref, float w0, float w1, float w2, float w3,
                       float w4, float w5, int road_stride, void* stream) {
     if (road_stride < 0) return (int)cudaErrorInvalidValue;
-    return launch_phased<Pacejka, false>(u, y0, cltab, pvec, nullptr, nullptr,
-                                         nullptr, nullptr, nullptr, psi, grad,
-                                         E, n_horiz, n_cl, substeps, h, v_ref,
-                                         w0, w1, w2, w3, w4, w5, road_stride,
-                                         stream);
+    return launch_phased<Pacejka>(u, y0, cltab, pvec, psi, grad, E, n_horiz,
+                                  n_cl, substeps, h, v_ref, w0, w1, w2, w3,
+                                  w4, w5, road_stride, stream);
 }
 
 // K2: kinematic bicycle, sd = 4.
@@ -846,38 +1113,38 @@ int mpc_fused_psi_fan_kin(const float* u, const float* y0, const float* cltab,
                           int n_horiz, int n_cl, int substeps, double h,
                           float v_ref, float w0, float w1, float w2, float w3,
                           float w4, float w5, void* stream) {
-    return launch_phased<Kinematic, false>(u, y0, cltab, pvec, nullptr, nullptr,
-                                           nullptr, nullptr, nullptr, psi,
-                                           grad, E, n_horiz, n_cl, substeps, h,
-                                           v_ref, w0, w1, w2, w3, w4, w5, 0,
-                                           stream);
+    return launch_phased<Kinematic>(u, y0, cltab, pvec, psi, grad, E, n_horiz,
+                                    n_cl, substeps, h, v_ref, w0, w1, w2, w3,
+                                    w4, w5, 0, stream);
 }
 
-// K3: Pacejka with the augmented-Lagrangian penalty, sd = 6.
+// K3: Pacejka with the augmented-Lagrangian penalty, sd = 6, in three
+// kernels through ``scratch``, a device buffer of ``scratch_floats``
+// floats, at least (55 n_horiz + 6) planes of E rounded up to 32.
 int mpc_fused_psi_fan_al(const float* u, const float* y0, const float* cltab,
                          const float* pvec, const float* lam,
                          const float* sig, const float* off, const float* lo,
-                         const float* up, float* psi, float* grad, int E,
+                         const float* up, float* psi, float* grad,
+                         float* scratch, long long scratch_floats, int E,
                          int n_horiz, int n_cl, int substeps, double h,
                          float v_ref, float w0, float w1, float w2, float w3,
                          float w4, float w5, void* stream) {
-    return launch_phased<Pacejka, true>(u, y0, cltab, pvec, lam, sig, off, lo,
-                                        up, psi, grad, E, n_horiz, n_cl,
-                                        substeps, h, v_ref, w0, w1, w2, w3, w4,
-                                        w5, 0, stream);
+    return launch_scratch<Pacejka>(u, y0, cltab, pvec, lam, sig, off, lo, up,
+                                   psi, grad, scratch, scratch_floats, E,
+                                   n_horiz, n_cl, substeps, h, v_ref, w0, w1,
+                                   w2, w3, w4, w5, stream);
 }
 
 // The phased kernel's lanes per block and shared memory bytes for E lanes
-// of the model of state dimension sd (K1: sd = 6, al = 0; K2: sd = 4,
-// al = 0; K3: sd = 6, al = 1) at road stride road_stride (0: one shared
-// road) on the current device; cudaErrorInvalidValue for another sd or if
-// the shape does not fit even at one lane per block.
-int mpc_fused_psi_fan_plan(int sd, int al, int E, int n_horiz, int n_cl,
+// of the model of state dimension sd (K1: sd = 6; K2: sd = 4) at road
+// stride road_stride (0: one shared road) on the current device;
+// cudaErrorInvalidValue for another sd or if the shape does not fit even at
+// one lane per block.
+int mpc_fused_psi_fan_plan(int sd, int E, int n_horiz, int n_cl,
                            int road_stride, int* lanes, int* smem_bytes) {
     if (sd != Pacejka::SD && sd != Kinematic::SD) return (int)cudaErrorInvalidValue;
     size_t smem = 0;
-    const int rc = ph_plan(sd, al != 0, E, n_horiz, n_cl, road_stride, lanes,
-                           &smem);
+    const int rc = ph_plan(sd, E, n_horiz, n_cl, road_stride, lanes, &smem);
     *smem_bytes = (int)smem;
     return rc;
 }

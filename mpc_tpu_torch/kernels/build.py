@@ -95,10 +95,10 @@ def check_operand(who: str, name: str, t, shape, device, dtype=None):
 
 def load_fused_psi() -> ctypes.CDLL:
     """The fan kernels' library (``csrc/fused_psi.cu``: K1
-    ``mpc_fused_psi_fan``, on one road or per-lane roads, K2
-    ``mpc_fused_psi_fan_kin``, K3
-    ``mpc_fused_psi_fan_al``, all three instances of the phased kernel, and
-    its ``mpc_fused_psi_fan_plan``), built on first use."""
+    ``mpc_fused_psi_fan``, on one road or per-lane roads, and K2
+    ``mpc_fused_psi_fan_kin``, instances of the phased kernel, with its
+    ``mpc_fused_psi_fan_plan``; K3 ``mpc_fused_psi_fan_al``, three kernels
+    through a device scratch), built on first use."""
     with _lock:
         lib = _loaded.get("fused_psi")
         if lib is None:
@@ -107,20 +107,22 @@ def load_fused_psi() -> ctypes.CDLL:
             # the 6 weights and the stream
             tail = ([ctypes.c_int] * 4 + [ctypes.c_double]
                     + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-            for name, n_ptrs in (("mpc_fused_psi_fan_kin", 6),
-                                 ("mpc_fused_psi_fan_al", 11)):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
-                fn.restype = ctypes.c_int
+            lib.mpc_fused_psi_fan_kin.argtypes = [ctypes.c_void_p] * 6 + tail
+            lib.mpc_fused_psi_fan_kin.restype = ctypes.c_int
+            # K3: 12 device pointers (the scratch last), then the scratch's
+            # floats
+            lib.mpc_fused_psi_fan_al.argtypes = (
+                [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + tail)
+            lib.mpc_fused_psi_fan_al.restype = ctypes.c_int
             # K1: the road stride before the stream
             lib.mpc_fused_psi_fan.argtypes = (
                 [ctypes.c_void_p] * 6 + tail[:-1]
                 + [ctypes.c_int, ctypes.c_void_p])
             lib.mpc_fused_psi_fan.restype = ctypes.c_int
-            # sd, al, E, n_horiz, n_cl, road stride -> lanes per block,
+            # sd, E, n_horiz, n_cl, road stride -> lanes per block,
             # shared-memory bytes
             lib.mpc_fused_psi_fan_plan.argtypes = (
-                [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2)
+                [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2)
             lib.mpc_fused_psi_fan_plan.restype = ctypes.c_int
             _loaded["fused_psi"] = lib
         return lib

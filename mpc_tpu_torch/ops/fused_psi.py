@@ -30,8 +30,11 @@ Three implementations of the same function live here:
 - The wrappers :func:`fan_value_and_grad` (K1),
   :func:`kin_fan_value_and_grad` (K2) and :func:`al_fan_value_and_grad`
   (K3): each checks its inputs, runs the plain version for a CPU tensor, and
-  launches its CUDA kernel for a CUDA tensor (or raises). Each counts its
-  own kernel launches in its ``launches`` attribute.
+  launches its CUDA kernel for a CUDA tensor (or raises). K1 and K2 are the
+  phased kernel, which hands its phases on in shared memory; K3 runs the
+  same phases as three kernels that hand on through a device scratch the
+  wrapper allocates (:func:`al_scratch_floats`). Each wrapper counts its
+  calls on the card in its ``launches`` attribute, one a call.
 
 The reference's polynomial arctan exists only because the TPU compiler has
 no atan lowering; every version here uses the native ``atan2``/``atan``.
@@ -52,6 +55,8 @@ from mpc_tpu_torch.ops.road import wrap_to_pi
 #: the kernels' limit on the horizon (csrc/fused_psi.cu MAX_N); their
 #: shared memory is limited by the card, which ``phased_plan`` asks
 KERNEL_MAX_HORIZON = 64
+#: cudaErrorInvalidValue, which a launcher returns for a shape it refuses
+_CUDA_ERROR_INVALID_VALUE = 1
 
 
 def make_cltab(centerline: torch.Tensor) -> torch.Tensor:
@@ -302,7 +307,9 @@ def _stage_cost_vjp(x, pts, v_ref, c):
 
 # ---------------------------------------------------------------------------
 # The phased algorithm of K1, K2 and K3, transcribed line by line into
-# csrc/fused_psi.cu (fused_psi_fan_phased)
+# csrc/fused_psi.cu: K1 and K2 run its phases in one kernel
+# (fused_psi_fan_phased), K3 in three (fused_psi_fan_rollout, _stages and
+# _adjoint)
 # ---------------------------------------------------------------------------
 
 def _lin(*pairs):
@@ -483,7 +490,7 @@ def _stage_linearisation(model, xs, d, delta, p, h, substeps):
 
 def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
                               v_ref, weights, model="pacejka", al=None):
-    """The phased kernel's algorithm in batched torch, no autograd: K1
+    """The fan kernels' phased algorithm in batched torch, no autograd: K1
     (``model="pacejka"``), K2 (``"simplified"``) and K3 (Pacejka with
     ``al``); ``cltab`` as in :func:`fan_value_and_grad_reference`.
 
@@ -555,6 +562,15 @@ def _fan_phased_transcription(u, y0, cltab, pvec, n_horiz, substeps, h,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def al_scratch_floats(E: int, n_horiz: int) -> int:
+    """The floats of the device scratch through which K3's kernels hand a
+    lane's intermediates on (``csrc/fused_psi.cu``, ``scratch_layout``): 55
+    N + 6 planes (the N + 1 boundary states and each stage's Jacobian,
+    state gradient, cost and penalties, 6 states), each of E floats rounded
+    up to 32."""
+    return (55 * n_horiz + 6) * (-(-E // 32) * 32)
+
+
 def _check(name, t, shape, device):
     check_operand("fan", name, t, shape, device)
 
@@ -617,10 +633,14 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if al is not None:
+            n_scratch = al_scratch_floats(E, n_horiz)
+            scratch = torch.empty((n_scratch,), dtype=torch.float32,
+                                  device=dev)
             rc = lib.mpc_fused_psi_fan_al(
                 u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
                 pvec.data_ptr(), *(t.data_ptr() for t in al),
-                psi.data_ptr(), grad.data_ptr(), *common, stream)
+                psi.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
+                n_scratch, *common, stream)
         elif model == "pacejka":
             rc = lib.mpc_fused_psi_fan(
                 u.data_ptr(), y0.data_ptr(), cltab.data_ptr(),
@@ -634,8 +654,15 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
         if rc != 0:
             # a shape the kernel's shared memory cannot hold raises
             # ValueError here; anything else is a launch failure
-            phased_plan(E, n_horiz, n_cl, model, al is not None,
-                        cltab.shape[0] if rs else 0)
+            if al is None:
+                phased_plan(E, n_horiz, n_cl, model,
+                            cltab.shape[0] if rs else 0)
+            elif rc == _CUDA_ERROR_INVALID_VALUE:
+                # the shapes are checked above, so K3's stage terms cannot
+                # stage the road table and the bounds in shared memory
+                raise ValueError(f"fan: K3 at N={n_horiz} with a {n_cl}-row "
+                                 f"centerline table does not fit the "
+                                 f"kernel's shared memory (cudaError {rc})")
     if rc != 0:
         raise RuntimeError(f"fan: CUDA kernel launch failed with "
                            f"cudaError {rc}")
@@ -646,19 +673,18 @@ def _fan(wrapper, model, u, y0, cltab, pvec, n_horiz, substeps, h, v_ref,
 
 
 def phased_plan(E: int, n_horiz: int, n_cl: int, model: str,
-                al: bool, roads: int = 0) -> tuple:
+                roads: int = 0) -> tuple:
     """``(lanes per block, shared-memory bytes)`` of the phased kernel for
-    ``model`` (K1 ``"pacejka"``, K2 ``"simplified"``, K3 ``"pacejka"`` with
-    ``al``) for E lanes on one shared road (``roads`` 0) or on ``roads``
-    roads of E / roads lanes each (a block stages each road its lanes read)
-    on the current CUDA device, as its launcher picks them; ValueError if
-    the shape does not fit the device's shared memory even at one lane per
-    block."""
+    ``model`` (K1 ``"pacejka"``, K2 ``"simplified"``) for E lanes on one
+    shared road (``roads`` 0) or on ``roads`` roads of E / roads lanes each
+    (a block stages each road its lanes read) on the current CUDA device,
+    as its launcher picks them; ValueError if the shape does not fit the
+    device's shared memory even at one lane per block."""
     from mpc_tpu_torch.kernels.build import load_fused_psi
     lanes, smem = ctypes.c_int(0), ctypes.c_int(0)
     rs = _lanes_per_road(E, roads) if roads else 0
     rc = load_fused_psi().mpc_fused_psi_fan_plan(
-        _MODELS[model][1], int(al), E, n_horiz, n_cl, rs,
+        _MODELS[model][1], E, n_horiz, n_cl, rs,
         ctypes.byref(lanes), ctypes.byref(smem))
     if rc != 0:
         raise ValueError(f"fan: N={n_horiz} with a {n_cl}-row centerline "
@@ -705,13 +731,15 @@ def al_fan_value_and_grad(u: torch.Tensor, y0: torch.Tensor,
     """K3, the Pacejka fan plus the augmented-Lagrangian penalty of the
     state constraints ``x_i^2 - offsets_i in [d_lo, d_up]``: ``lam``,
     ``sigma`` (E, 6N) per lane, ``offsets`` (6,), ``d_lo``, ``d_up`` (6N,),
-    stage-major. A shared road only."""
+    stage-major. A shared road only. On the card, three kernels through a
+    scratch of ``al_scratch_floats(E, N)`` floats; ``launches`` counts the
+    call once."""
     return _fan(al_fan_value_and_grad, "pacejka", u, y0, cltab, pvec,
                 n_horiz, substeps, h, v_ref, weights,
                 al=(lam, sigma, offsets, d_lo, d_up))
 
 
-#: kernel launches since each count was last reset
+#: kernel launches (K3: calls) since each count was last reset
 fan_value_and_grad.launches = 0
 fan_value_and_grad.road_launches = 0
 kin_fan_value_and_grad.launches = 0

@@ -75,7 +75,7 @@ N_PROFILED = {"headline": 3, "config1": 3, "ss_n40": 1, "ilqr_n40": 2,
               "etc": 12, "config5": 3, "config4": 3}
 UNFUSED = ("ms_n40_m8", "config5_obs", "chain")
 CAPPED_ITERS = 4      # one chunk of masked PANOC iterations
-FAN_KERNEL = "fused_psi_fan"   # K1-K3: instances of fused_psi_fan_phased
+FAN_KERNEL = "fused_psi_fan"   # K1, K2 fused_psi_fan_phased; K3 its 3 kernels
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_DIR = os.path.join(ROOT, "build", "profile")
 

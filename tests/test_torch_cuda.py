@@ -254,6 +254,40 @@ def test_al_kernel_matches_plain_version(cuda, E, log_sigma, out_of_box):
                    0.01 if out_of_box or E > 100 else 0.0)
 
 
+def _active_al_operands(seed, E, n_horiz, device):
+    """Penalties log-uniform over 10^-1 .. 10^3 and multipliers of which
+    about a third are above 0, as in the constrained cell, where 33-41% of
+    the lanes carry an active multiplier."""
+    lam, sigma, *bounds = _al_operands(seed, E, n_horiz, device, (-1, 3))
+    rng = np.random.default_rng(seed + 2000)
+    keep = torch.as_tensor(rng.uniform(size=tuple(lam.shape)) < 1 / 3,
+                           device=device)
+    return (torch.where(keep, lam, torch.zeros_like(lam)), sigma, *bounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [8192, 20480, 1, 37, 4229])
+def test_al_kernel_matches_plain_version_at_the_cell_shapes(cuda, E):
+    # K3 through its scratch at the constrained cell's fan sizes (E = 2 B
+    # for the Lipschitz pair at B = 4,096, 5 B a trip) and at one lane, 37
+    # and a ragged 4,229 (5 lanes in the rollout's last block of 32, 72
+    # pairs in the stage terms' last block of 128): N = 40 on the 100-point
+    # lane-change road. psi is the plain version's to the bit.
+    n_horiz = 40
+    u, y0 = _variant_inputs(E + 11, E, n_horiz, 6, cuda)
+    al = _active_al_operands(E + 11, E, n_horiz, cuda)
+    cltab, pvec = fp.fan_params(_lane_change_road(cuda), VehicleParams())
+    args = (n_horiz, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
+    r = _check_variant(f"K3 scratch E={E}", fp.al_fan_value_and_grad,
+                       lambda: fp.al_fan_value_and_grad(u, y0, cltab, pvec,
+                                                        *al, *args),
+                       u, y0, cltab, pvec, args, "pacejka", al,
+                       0.01 if E > 100 else 0.0)
+    assert r["max_abs_err_psi"] == 0.0, r
+    print(f"K3 scratch E={E}: multipliers above 0 "
+          f"{float((al[0] > 0).float().mean()):.3f}")
+
+
 class _Captured(Exception):
     """Ends a step once the fan calls it was run for are captured."""
 
@@ -382,8 +416,9 @@ def test_variant_controller_step_on_card_matches_cpu(cuda, variant):
 
 
 # ---------------------------------------------------------------------------
-# The phased kernel (K1, K2, K3): lanes per block, ragged blocks, shared
-# memory
+# The fan kernels, K1 and K2 (the phased kernel) and K3 (its phases as three
+# kernels through a device scratch): lanes per block, ragged blocks, shared
+# and device memory
 # ---------------------------------------------------------------------------
 
 #: kernel -> (path's horizon, model, state dimension, wrapper)
@@ -402,6 +437,8 @@ def test_phased_kernel_matches_plain_version(cuda, kernel, E):
     # lane per block, so that the grid covers the SMs), and at E=4229 and
     # 1059, whose last block of 32 or 8 lanes holds only 5 or 3, on drawn
     # in-box inputs.
+    # K3's rollout and adjoint take a thread a lane and a warp a block, so
+    # that E=1059's last block holds 3 lanes.
     al_kernel = kernel == "K3"
     n_horiz, model, sd, name = PHASED[kernel]
     u, y0 = _variant_inputs(E + 7, E, n_horiz, sd, cuda)
@@ -409,10 +446,12 @@ def test_phased_kernel_matches_plain_version(cuda, kernel, E):
         else circle_centerline(100, device=cuda)
     cltab, pvec = fp.fan_params(road, VehicleParams())
     args = (n_horiz, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
-    lanes, smem = fp.phased_plan(E, n_horiz, cltab.shape[0], model,
-                                 al_kernel)
-    print(f"{kernel} E={E}: {lanes} lanes per block, {smem} B of shared "
-          f"memory")
+    if al_kernel:
+        lanes = 32
+    else:
+        lanes, smem = fp.phased_plan(E, n_horiz, cltab.shape[0], model)
+        print(f"{kernel} E={E}: {lanes} lanes per block, {smem} B of shared "
+              f"memory")
     if E in (4229, 1059):
         assert E % lanes != 0, (E, lanes)
     wrapper = getattr(fp, name)
@@ -427,20 +466,34 @@ def test_phased_kernel_matches_plain_version(cuda, kernel, E):
 @pytest.mark.cuda
 def test_phased_kernel_opts_in_to_large_shared_memory(cuda):
     # The paths' shapes need more than the default 48 KB of shared memory
-    # per block, and give a grid of at least one block per SM.
+    # per block, and give a grid of at least one block per SM. K3 keeps a
+    # lane's intermediates in a device scratch instead: a call asks for its
+    # outputs and one scratch of al_scratch_floats(E, N) floats of device
+    # memory, and hands the scratch back when it returns. The last call,
+    # E=1280, is held against the plain version.
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for E, kernel in ((5120, "K1"), (5120, "K2"), (1280, "K3")):
+    for E, kernel in ((5120, "K1"), (5120, "K2")):
         n_horiz, model = PHASED[kernel][:2]
-        lanes, smem = fp.phased_plan(E, n_horiz, 99, model, kernel == "K3")
+        lanes, smem = fp.phased_plan(E, n_horiz, 99, model)
         assert smem > 48 * 1024 and -(-E // lanes) >= n_sm, (E, lanes, smem)
-    u, y0 = _variant_inputs(3, 1280, 40, 6, cuda)
-    al = _al_operands(3, 1280, 40, cuda, (3, 9))
     cltab, pvec = fp.fan_params(_lane_change_road(cuda), VehicleParams())
-    before = fp.al_fan_value_and_grad.launches
-    psi, grad = fp.al_fan_value_and_grad(u, y0, cltab, pvec, *al, 40, 4,
-                                         0.0125, 1.0)
-    torch.cuda.synchronize()
-    assert fp.al_fan_value_and_grad.launches == before + 1
+    for E in (40960, 20480, 1280):
+        u, y0 = _variant_inputs(3, E, 40, 6, cuda)
+        al = _al_operands(3, E, 40, cuda, (3, 9))
+        psi = grad = None       # the last call's outputs, handed back
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        held = torch.cuda.memory_stats(cuda)["requested_bytes.all.current"]
+        before = fp.al_fan_value_and_grad.launches
+        psi, grad = fp.al_fan_value_and_grad(u, y0, cltab, pvec, *al, 40, 4,
+                                             0.0125, 1.0)
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats(cuda)
+        assert fp.al_fan_value_and_grad.launches == before + 1
+        outputs = 4 * (E + E * 80)
+        assert stats["requested_bytes.all.peak"] - held \
+            == outputs + 4 * fp.al_scratch_floats(E, 40), E
+        assert stats["requested_bytes.all.current"] - held == outputs, E
     psi_r, _ = fp.fan_value_and_grad_reference(
         u, y0, cltab, pvec, 40, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS,
         al=al)
@@ -460,10 +513,26 @@ def test_phased_kernel_refuses_an_oversize_shape(cuda, kernel):
                                    VehicleParams())
     before = wrapper.launches
     with pytest.raises(ValueError, match="shared memory"):
-        fp.phased_plan(64, n_horiz, long_tab.shape[0], model, False)
+        fp.phased_plan(64, n_horiz, long_tab.shape[0], model)
     with pytest.raises(ValueError, match="shared memory"):
         wrapper(u, y0, long_tab, pvec, n_horiz, 4, 0.0125, 1.0)
     assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+def test_al_kernel_refuses_an_oversize_road(cuda):
+    # K3's stage terms stage the road table beside the bounds: 10,000 rows
+    # (240 KB) exceed the card's shared memory, and the call raises before
+    # it counts a launch
+    u, y0 = _variant_inputs(0, 64, 40, 6, cuda)
+    al = _al_operands(0, 64, 40, cuda, (-1, 3))
+    long_tab, pvec = fp.fan_params(straight_centerline(10000, device=cuda),
+                                   VehicleParams())
+    before = fp.al_fan_value_and_grad.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fp.al_fan_value_and_grad(u, y0, long_tab, pvec, *al, 40, 4, 0.0125,
+                                 1.0)
+    assert fp.al_fan_value_and_grad.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +559,7 @@ def _scenario_fan(seed, E, K, device):
 def test_roads_kernel_matches_plain_version(cuda, E, K):
     u, y0, cltab, pvec = _scenario_fan(E + K, E, K, cuda)
     args = (12, 4, 0.0125, 1.0, fp.DEFAULT_VEHICLE_WEIGHTS)
-    lanes, smem = fp.phased_plan(E, 12, cltab.shape[1], "pacejka", False,
+    lanes, smem = fp.phased_plan(E, 12, cltab.shape[1], "pacejka",
                                  E // K)
     print(f"K1 roads E={E} K={K}: {lanes} lanes per block, {smem} B")
     before = (fp.fan_value_and_grad.launches,
@@ -513,8 +582,8 @@ def test_roads_kernel_stages_each_blocks_roads(cuda):
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     road_bytes = 99 * 6 * 4
     for E, K in ((10240, 5), (4096, 2), (2560, 5), (1024, 2), (320, 5)):
-        lanes, smem = fp.phased_plan(E, 12, 99, "pacejka", False, E // K)
-        lanes0, smem0 = fp.phased_plan(E, 12, 99, "pacejka", False)
+        lanes, smem = fp.phased_plan(E, 12, 99, "pacejka", E // K)
+        lanes0, smem0 = fp.phased_plan(E, 12, 99, "pacejka")
         assert lanes == lanes0 and -(-E // lanes) >= min(n_sm, E), (E, K)
         assert smem - smem0 == ((lanes - 1) // K + 1) * road_bytes, \
             (E, K, smem, smem0)

@@ -1,6 +1,7 @@
 """The phased algorithm of the fan kernels K1, K2 and K3
 (``_fan_phased_transcription`` in mpc_tpu_torch/ops/fused_psi.py, line for
-line what ``fused_psi_fan_phased`` in csrc/fused_psi.cu does) against
+line what ``fused_psi_fan_phased`` in csrc/fused_psi.cu does, and K3's
+three kernels there in turn) against
 autograd of the port's plain version and against the JAX package's fused XLA
 evaluator (``mpc_tpu.ops.fused_psi._eval_xla``); and the port's device
 default: its entry points run on the card unless the caller names the CPU.
